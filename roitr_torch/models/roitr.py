@@ -1,0 +1,208 @@
+"""The RoITr coarse-to-fine matching pipeline, single pair, inference.
+
+Counterpart of roitr_tpu/models/roitr.py (reference model/RIGA_v2.py:10-180):
+backbone -> descriptor projections -> point-to-node partition -> coarse
+matching -> patch gathering -> Sinkhorn OT -> fine matching, with fixed-size
+buffers and masks wherever the reference is ragged. Outputs carry the JAX
+forward's keys. The ground-truth outputs (`with_gt=True`), training and
+packed batches belong to later slices of the port.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from roitr_torch.config import Config
+from roitr_torch.models.backbone import RIPointTransformer
+from roitr_torch.models.matching import coarse_matching, fine_matching
+from roitr_torch.ops.partition import point_to_node_partition
+from roitr_torch.ops.sinkhorn import log_sinkhorn_ot
+
+
+class PairInputs(NamedTuple):
+    """One padded point-cloud pair (prefix-packed), torch tensors.
+
+    For rigid benchmarks src_points == src_raw_points; the backbone runs on
+    the raw geometry (reference RIGA_v2.py:58-62)."""
+
+    src_points: torch.Tensor  # (N, 3)
+    src_raw_points: torch.Tensor  # (N, 3)
+    src_normals: torch.Tensor  # (N, 3)
+    src_feats: torch.Tensor  # (N, 1)
+    src_count: torch.Tensor  # () int64
+    tgt_points: torch.Tensor  # (N, 3)
+    tgt_normals: torch.Tensor  # (N, 3)
+    tgt_feats: torch.Tensor  # (N, 1)
+    tgt_count: torch.Tensor  # () int64
+    rot: Optional[torch.Tensor] = None  # (3, 3) GT rotation, with_gt only
+    trans: Optional[torch.Tensor] = None  # (3, 1) GT translation, with_gt only
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for an entry point; a CUDA device must exist (no
+    silent fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' asked for but no CUDA device is available; "
+                               "pass device='cpu' to run the plain versions on the CPU")
+        # full fp32 products (x^2 - 2xy + y^2 distances, descriptors)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init: Linear weights and biases U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), LayerNorm weight 1 and bias 0."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            with torch.no_grad():
+                m.weight.copy_(torch.rand(m.weight.shape, generator=generator) * 2 * bound - bound)
+                m.bias.copy_(torch.rand(m.bias.shape, generator=generator) * 2 * bound - bound)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+class LearnableLogOptimalTransport(nn.Module):
+    """Holds the learnable dustbin score (reference modules.py:10-72)."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.tensor(1.0))
+
+
+class RoITr(nn.Module):
+    """The matching pipeline. `state_dict()` has the reference checkpoint's
+    key layout less the entries the model never reads."""
+
+    def __init__(self, cfg: Config, device="cuda", seed: int = 0):
+        super().__init__()
+        if cfg.host_pyramid or cfg.device_prep or cfg.packed_batch:
+            raise NotImplementedError(
+                "host_pyramid, device_prep and packed_batch are not ported yet")
+        if cfg.knn_method != "exact":
+            raise NotImplementedError(f"knn_method {cfg.knn_method!r}: the port has exact kNN")
+        if cfg.sinkhorn_backend != "pallas":
+            raise NotImplementedError(
+                f"sinkhorn_backend {cfg.sinkhorn_backend!r}: the port runs the Sinkhorn kernel "
+                "on the card and its plain loop on the CPU")
+        if not cfg.is_rigid:
+            raise NotImplementedError("non-rigid (4DMatch) matching is a later slice of the port")
+        device = resolve_device(device)
+        self.cfg = cfg
+        f = cfg.channel_factor
+        self.backbone = RIPointTransformer(
+            transformer_blocks=tuple(cfg.transformer_architecture), factor=f,
+            num_heads=cfg.num_heads, enc_blocks=tuple(cfg.enc_blocks),
+            strides=tuple(cfg.enc_strides), nsample=tuple(cfg.enc_nsample),
+            geo_embedding_storage=cfg.geo_embedding_storage)
+        self.coarse_proj = nn.Linear(256 * f, 256 * f)
+        self.fine_proj = nn.Linear(64 * f, 256 * f)
+        self.optimal_transport = LearnableLogOptimalTransport()
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+        self.device = device
+
+    @torch.no_grad()
+    def forward(self, pair: PairInputs, train: bool = False,
+                with_gt: bool = False) -> Dict[str, torch.Tensor]:
+        if train:
+            raise NotImplementedError("training is a later slice of the port")
+        if with_gt:
+            raise NotImplementedError(
+                "with_gt=True (GT node correspondences and occlusion scores, the Tester's "
+                "outputs) is a later slice of the port")
+        if pair.src_count.ndim != 0:
+            raise NotImplementedError("packed batches are a later slice of the port")
+        cfg = self.cfg
+        (src_nodes, src_node_feats, src_points, src_point_feats, src_node_count, tgt_nodes,
+         tgt_node_feats, tgt_points, tgt_point_feats, tgt_node_count) = self.backbone(
+            pair.src_raw_points, pair.src_normals, pair.src_feats, pair.src_count,
+            pair.tgt_points, pair.tgt_normals, pair.tgt_feats, pair.tgt_count, pair.src_points)
+
+        src_node_feats = F.normalize(self.coarse_proj(src_node_feats), dim=-1, eps=1e-12)
+        tgt_node_feats = F.normalize(self.coarse_proj(tgt_node_feats), dim=-1, eps=1e-12)
+        src_point_feats = self.fine_proj(src_point_feats)
+        tgt_point_feats = self.fine_proj(tgt_point_feats)
+        out: Dict[str, torch.Tensor] = {
+            "src_points": src_points, "tgt_points": tgt_points,
+            "src_nodes": src_nodes, "tgt_nodes": tgt_nodes,
+            "src_point_feats": src_point_feats, "tgt_point_feats": tgt_point_feats,
+            "src_node_feats": src_node_feats, "tgt_node_feats": tgt_node_feats,
+            "src_count": pair.src_count, "tgt_count": pair.tgt_count,
+            "src_node_count": src_node_count, "tgt_node_count": tgt_node_count,
+        }
+
+        # point-to-node partition (reference RIGA_v2.py:82-89)
+        src_part = point_to_node_partition(src_points, src_nodes, cfg.point_per_patch,
+                                           pair.src_count, src_node_count)
+        tgt_part = point_to_node_partition(tgt_points, tgt_nodes, cfg.point_per_patch,
+                                           pair.tgt_count, tgt_node_count)
+        zrow = src_points.new_zeros((1, 3))
+        src_node_knn_points = torch.cat([src_points, zrow])[src_part.node_knn_indices]
+        tgt_node_knn_points = torch.cat([tgt_points, zrow])[tgt_part.node_knn_indices]
+
+        # serving mode: the ground-truth analysis outputs are empty
+        dev = src_points.device
+        c = min(cfg.max_gt_corr_candidates, tgt_nodes.shape[0] * src_nodes.shape[0])
+        out["gt_node_corr_indices"] = torch.zeros((c, 2), dtype=torch.int64, device=dev)
+        out["gt_node_corr_overlaps"] = torch.zeros((c,), dtype=torch.float32, device=dev)
+        out["gt_node_corr_masks"] = torch.zeros((c,), dtype=torch.bool, device=dev)
+        out["gt_tgt_node_occ"] = torch.zeros((tgt_nodes.shape[0],), device=dev)
+        out["gt_src_node_occ"] = torch.zeros((src_nodes.shape[0],), device=dev)
+
+        # coarse matching (reference RIGA_v2.py:119-126)
+        corr = coarse_matching(tgt_node_feats, src_node_feats, tgt_part.node_masks,
+                               src_part.node_masks, cfg.num_est_coarse_corr,
+                               dual_normalization=True)
+        out["tgt_node_corr_indices"] = corr.ref_indices
+        out["src_node_corr_indices"] = corr.src_indices
+        out["node_corr_masks"] = corr.masks
+
+        # per-correspondence patches (reference :129-147)
+        tgt_idx, src_idx = corr.ref_indices, corr.src_indices
+        src_knn_idx = src_part.node_knn_indices[src_idx]  # (P, K)
+        tgt_knn_idx = tgt_part.node_knn_indices[tgt_idx]
+        src_knn_masks = src_part.node_knn_masks[src_idx] & corr.masks[:, None]
+        tgt_knn_masks = tgt_part.node_knn_masks[tgt_idx] & corr.masks[:, None]
+        src_knn_points = src_node_knn_points[src_idx]  # (P, K, 3)
+        tgt_knn_points = tgt_node_knn_points[tgt_idx]
+        zfeat = src_point_feats.new_zeros((1, src_point_feats.shape[-1]))
+        src_knn_feats = torch.cat([src_point_feats, zfeat])[src_knn_idx]  # (P, K, C)
+        tgt_knn_feats = torch.cat([tgt_point_feats, zfeat])[tgt_knn_idx]
+        out["src_node_corr_knn_points"] = src_knn_points
+        out["tgt_node_corr_knn_points"] = tgt_knn_points
+        out["src_node_corr_knn_masks"] = src_knn_masks
+        out["tgt_node_corr_knn_masks"] = tgt_knn_masks
+
+        # optimal transport (reference :150-153); rows: tgt, cols: src
+        ch = src_point_feats.shape[-1]
+        matching_scores = torch.einsum("pnc,pmc->pnm", tgt_knn_feats, src_knn_feats) / ch ** 0.5
+        matching_scores = log_sinkhorn_ot(
+            matching_scores, tgt_knn_masks, src_knn_masks, self.optimal_transport.alpha,
+            num_iter=cfg.sinkhorn_iters, tol=cfg.sinkhorn_tol)
+        out["matching_scores"] = matching_scores
+
+        # fine matching (reference :158-169)
+        scores = matching_scores if cfg.fine_matching_use_dustbin else matching_scores[:, :-1, :-1]
+        fine = fine_matching(
+            tgt_knn_points, src_knn_points, tgt_knn_masks, src_knn_masks, scores, corr.masks,
+            global_scores=corr.scores, k=cfg.fine_matching_topk, mutual=cfg.fine_matching_mutual,
+            confidence_threshold=cfg.fine_matching_confidence_threshold,
+            use_global_score=cfg.fine_matching_use_global_score,
+            use_dustbin=cfg.fine_matching_use_dustbin)
+        out["tgt_corr_points"] = fine.ref_points
+        out["src_corr_points"] = fine.src_points
+        out["corr_scores"] = fine.scores
+        out["corr_masks"] = fine.masks
+        return out

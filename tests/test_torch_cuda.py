@@ -1,0 +1,202 @@
+"""Each CUDA kernel of the port against its plain PyTorch version on the
+card, at small and odd shapes, plus a small forward and a Matcher call on
+the card. Needs a CUDA card; skips without one (the decision is taken in a
+fixture, never at import). On the card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(`--noconftest`: the tests' conftest imports JAX, which the port's card
+machine does not need to have.)
+
+Tolerances, each against the plain version on the same card and inputs:
+FPS indices exactly; fp32 outputs within 1e-4 of the largest reference
+value (the kernels sum in another order than the library); bf16 outputs
+within one bf16 step at that value; Sinkhorn within 1e-4 on valid entries.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from roitr_torch import kernels
+from roitr_torch.kernels.fps_kernel import fps_pairs, fps_plain
+from roitr_torch.kernels.geo_embedding_kernel import fused_geo_embedding, geo_embedding_plain
+from roitr_torch.kernels.rpe_attention_kernel import fused_rpe_self_attention, rpe_attention_plain
+from roitr_torch.kernels.sinkhorn_kernel import sinkhorn_iterate, sinkhorn_plain
+from roitr_torch.ops.sinkhorn import sinkhorn_inputs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _launched(name, fn):
+    """fn() on the card; asserts it launched kernel `name` exactly once."""
+    before = kernels.launch_counts[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[name] == before + 1, name
+    return out
+
+
+def _close(got, ref, frac=1e-4):
+    err = float((got.float() - ref.float()).abs().max())
+    top = float(ref.float().abs().max())
+    assert err <= frac * max(top, 1e-6), (err, top)
+
+
+@pytest.mark.parametrize("n,counts,m", [
+    (384, (384, 301), 96),          # both clouds short of the bucket
+    (1000, (997, 3), 250),          # odd bucket; a cloud with fewer points than samples
+    (20000, (20000, 15000), 512),   # many picks, each across the 8 blocks of a cloud
+    (120000, (120000, 90000), 64),  # coordinates read from global memory
+    (470000, (470000, 300000), 16), # running distances in the global scratch buffer
+])
+def test_fps_kernel_exact(dev, n, counts, m):
+    rng = np.random.RandomState(n)
+    pts = np.zeros((2, n, 3), np.float32)
+    for b, c in enumerate(counts):
+        pts[b, :c] = rng.rand(c, 3)
+    p = torch.from_numpy(pts).to(dev)
+    c = torch.tensor(counts, dtype=torch.int32, device=dev)
+    got = _launched("fps", lambda: fps_pairs(p, c, m))
+    assert torch.equal(got, fps_plain(p, c, m))
+
+
+@pytest.mark.parametrize("r,k,hidden", [(300, 3, 64), (4096, 3, 256), (77, 1, 32), (130, 2, 256)])
+def test_geo_embedding_kernel(dev, r, k, hidden):
+    g = torch.Generator().manual_seed(r)
+    d = (torch.rand(r, generator=g) * 20).to(dev)
+    a = (torch.rand(r, k, generator=g) * 12).to(dev)
+    wd, wa = ((torch.randn(hidden, hidden, generator=g) / 8).to(dev) for _ in range(2))
+    bd, ba = ((torch.randn(hidden, generator=g) / 8).to(dev) for _ in range(2))
+    ref = geo_embedding_plain(d, a, wd, bd, wa, ba)
+    got = _launched("geo_embedding", lambda: fused_geo_embedding(d, a, wd, bd, wa, ba))
+    _close(got, ref)
+    got16 = _launched("geo_embedding", lambda: fused_geo_embedding(d, a, wd, bd, wa, ba,
+                                                                  out_dtype=torch.bfloat16))
+    assert got16.dtype == torch.bfloat16
+    _close(got16, ref, frac=1 / 128)
+
+
+@pytest.mark.parametrize("n,d,h,dtype,valid", [
+    (24, 32, 4, torch.float32, 20),
+    (64, 256, 4, torch.bfloat16, 64),
+    (100, 64, 2, torch.bfloat16, 37),
+    (40, 64, 8, torch.bfloat16, 33),     # the 8-head build
+    (20, 64, 16, torch.float32, 18),     # the 16-head build
+    (9, 32, 4, torch.float32, 1),    # one valid key: the positional softmax is empty for it
+    (8, 32, 4, torch.float32, 0),    # no valid key: zeros
+])
+def test_rpe_attention_kernel(dev, n, d, h, dtype, valid):
+    g = torch.Generator().manual_seed(n)
+    q2, k2, v2 = (torch.randn(n, d, generator=g).to(dev) for _ in range(3))
+    qwp = (torch.randn(n, h, d, generator=g) * 0.3).to(dev)
+    embed = torch.randn(n, n, d, generator=g).to(dev, dtype)
+    mask = (torch.arange(n) < valid).float().to(dev)
+    ref_h, ref_ae = rpe_attention_plain(q2, k2, v2, qwp, embed, mask)
+    hid, ae = _launched("rpe_attention",
+                        lambda: fused_rpe_self_attention(q2, k2, v2, qwp, embed, mask))
+    if valid == 0:
+        assert not hid.any() and not ae.any()
+    else:
+        _close(hid, ref_h)
+        _close(ae, ref_ae)
+
+
+@pytest.mark.parametrize("p,m,n,iters", [(5, 11, 9, 20), (256, 64, 64, 100), (3, 1, 1, 10)])
+def test_sinkhorn_kernel(dev, p, m, n, iters):
+    g = torch.Generator().manual_seed(p)
+    scores = torch.randn(p, m, n, generator=g).to(dev)
+    rm = (torch.rand(p, m, generator=g) > 0.2).to(dev)
+    cm = (torch.rand(p, n, generator=g) > 0.2).to(dev)
+    rm[:, 0] = cm[:, 0] = True
+    rm[-1] = False  # a fully masked patch slot stays finite
+    padded, mu, nu, _ = sinkhorn_inputs(scores, rm, cm, torch.tensor(1.3, device=dev))
+    ref = sinkhorn_plain(padded, mu, nu, iters)
+    got = _launched("sinkhorn", lambda: sinkhorn_iterate(padded, mu, nu, iters))
+    assert torch.isfinite(got).all()
+    valid = ref > -1e5
+    assert float((got - ref)[valid].abs().max()) <= 1e-4
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    before = dict(kernels.launch_counts)
+    pts = torch.rand(2, 64, 3, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fps_pairs(pts.transpose(0, 1).contiguous().transpose(0, 1), torch.tensor([64, 64]), 8)
+    with pytest.raises(TypeError, match="dtype"):
+        fps_pairs(pts.double(), torch.tensor([64, 64]), 8)
+    with pytest.raises(ValueError, match="num_samples"):
+        fps_pairs(pts, torch.tensor([64, 64]), 65)
+    x = torch.rand(16, 32, device=dev)
+    with pytest.raises(RuntimeError, match="rpe_attention kernel refused"):  # 3 heads, D 32
+        fused_rpe_self_attention(x, x, x, torch.rand(16, 3, 32, device=dev),
+                                 torch.rand(16, 16, 32, device=dev), torch.ones(16, device=dev))
+    big = torch.zeros(1, 300, 300, device=dev)  # 360 KB: more than a block's shared memory
+    with pytest.raises(RuntimeError, match="sinkhorn kernel refused"):
+        sinkhorn_iterate(big, torch.zeros(1, 300, device=dev), torch.zeros(1, 300, device=dev), 1)
+    assert kernels.launch_counts == before
+    # a refusal leaves no error behind for the next launch
+    small = torch.zeros(1, 5, 5, device=dev)
+    _launched("sinkhorn", lambda: sinkhorn_iterate(small, torch.zeros(1, 5, device=dev),
+                                                   torch.zeros(1, 5, device=dev), 1))
+
+
+def _tiny_cfg():
+    from roitr_torch.config import Config
+
+    return Config(benchmark="3DMatch", num_est_coarse_corr=16, point_per_patch=16,
+                  sinkhorn_iters=20, buckets=(256, 512), points_limit=512)
+
+
+def test_forward_on_card_matches_cpu(dev):
+    """Same seeded weights and pair on the card (kernels) and on the CPU
+    (plain versions), bf16 embedding storage: FPS nodes exactly, node
+    descriptors cos >= 0.999, point descriptors cos >= 0.999 on 99%."""
+    from torch_parity import pair_arrays, torch_pair
+    from roitr_torch.models.roitr import RoITr
+
+    cfg = _tiny_cfg()
+    arr = pair_arrays(5, bucket=512, n_valid=480, m_valid=400)
+    kernels.reset_launch_counts()
+    og = RoITr(cfg, device=dev, seed=0)(torch_pair(arr, dev))
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
+    oc = RoITr(cfg, device="cpu", seed=0)(torch_pair(arr))
+    og = {k: v.cpu() for k, v in og.items()}
+    for key in ("src_nodes", "tgt_nodes", "src_node_count", "tgt_node_count"):
+        assert torch.equal(og[key], oc[key]), key
+    cos = torch.nn.functional.cosine_similarity
+    for side, count in (("src", 480), ("tgt", 400)):
+        nc = int(oc[f"{side}_node_count"])
+        assert float(cos(og[f"{side}_node_feats"][:nc], oc[f"{side}_node_feats"][:nc]).min()) >= 0.999
+        pc = cos(og[f"{side}_point_feats"][:count], oc[f"{side}_point_feats"][:count])
+        assert float((pc >= 0.999).float().mean()) >= 0.99
+    for k, v in og.items():
+        if v.is_floating_point():
+            assert torch.isfinite(v).all(), k
+
+
+def test_matcher_on_card(dev):
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.serving import Matcher
+
+    cfg = _tiny_cfg()
+    matcher = Matcher(cfg, RoITr(cfg, device="cpu", seed=1).state_dict(), descriptors=True)
+    assert matcher.device.type == "cuda"
+    arr = make_pair_arrays(np.random.RandomState(2), 700, 700, 450)
+    kernels.reset_launch_counts()
+    out = matcher.match(arr["src_points"], arr["tgt_points"][:450])
+    assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
+    assert out["src_point_desc"].shape == (512, 256)  # capped at points_limit
+    assert out["tgt_point_desc"].shape == (450, 256)
+    for v in out.values():
+        assert np.isfinite(v).all()
