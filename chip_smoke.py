@@ -3,17 +3,26 @@
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-  1. device   name, count and power limit of the card (fails without one)
-  2. build    nvcc of every kernel in roitr_torch/csrc/, with ptxas's report
-  3. kernels  each kernel against its plain PyTorch version on the card at
-              the 32768-point bucket's shapes (FPS exact, the others within
-              stated tolerances), timed with CUDA events
-  4. forward  one seeded pair at the 4096 bucket through RoITr on the card
-              (kernels) and on the CPU (plain versions), same weights
-  5. serving  Matcher.match at full 3DMatch width on three synthetic pairs
-              of 20k-30k points (bucket 32768); launch counters are zeroed
-              just before and read just after, and every kernel must have
-              run
+  1. device    name, count and power limit of the card (fails without one)
+  2. build     nvcc of every kernel in roitr_torch/csrc/, with ptxas's report
+  3. kernels   each kernel, forward and backward, against its plain PyTorch
+               version on the card at the 32768-point bucket's shapes (FPS
+               exact, the others within stated tolerances), timed with CUDA
+               events
+  4. forward   one seeded pair at the 4096 bucket through RoITr on the card
+               (kernels) and on the CPU (plain versions), same weights
+  5. serving   Matcher.match at full 3DMatch width on three synthetic pairs
+               of 20k-30k points (bucket 32768); launch counters are zeroed
+               just before and read just after, and every forward kernel
+               must have run
+  6. train parity  one train step's forward, losses and backward at the
+               4096 bucket on the card and on the CPU, same weights and
+               Gumbel noise: losses and every parameter's gradient compared
+  7. training  Trainer at full 3DMatch width (configs/train/tdmatch.yaml)
+               for 3 train steps and 1 validation step on synthetic pairs of
+               20k-30k points (bucket 32768), in a temporary directory;
+               counters zeroed before and read after, and all seven kernels
+               must have run
 It then prints one JSON line with each kernel's numbers, the card's name
 and power limit, and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -22,8 +31,10 @@ and power limit, and last the result line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -91,12 +102,24 @@ def phase_kernels(rng):
     """Each kernel against its plain version at the 32768 bucket's shapes."""
     from roitr_torch.data.synthetic import make_pair_arrays
     from roitr_torch.kernels.fps_kernel import fps_pairs, fps_plain
-    from roitr_torch.kernels.geo_embedding_kernel import fused_geo_embedding, geo_embedding_plain
+    from roitr_torch.kernels.geo_embedding_kernel import (
+        fused_geo_embedding,
+        geo_embedding_bwd,
+        geo_embedding_bwd_plain,
+        geo_embedding_plain,
+    )
     from roitr_torch.kernels.rpe_attention_kernel import (
         fused_rpe_self_attention,
+        rpe_attention_bwd,
+        rpe_attention_bwd_plain,
         rpe_attention_plain,
     )
-    from roitr_torch.kernels.sinkhorn_kernel import sinkhorn_iterate, sinkhorn_plain
+    from roitr_torch.kernels.sinkhorn_kernel import (
+        sinkhorn_bwd,
+        sinkhorn_bwd_plain,
+        sinkhorn_iterate,
+        sinkhorn_plain,
+    )
     from roitr_torch.models.embeddings import GeometricStructureEmbedding
     from roitr_torch.ops.sinkhorn import sinkhorn_inputs
 
@@ -163,6 +186,37 @@ def phase_kernels(rng):
         bytes=r * 4 + r * k * 4 + 4 * (2 * 256 * 256 + 2 * 256) + r * 256 * 2,
         flops=2.0 * r * (1 + k) * 256 * 256)
 
+    # ---- geometric embedding backward: the kernel's own argmax map and a
+    # bf16 cotangent; kernel and plain version are given the same map
+    with torch.no_grad():
+        _, amap = fused_geo_embedding(d_idx, a_idx, *w, out_dtype=torch.bfloat16,
+                                      with_argmax=True)
+        _, plain_map = geo_embedding_plain(d_idx, a_idx, *w, out_dtype=torch.bfloat16,
+                                           with_argmax=True)
+        map_mism = int((amap != plain_map).sum())
+        g = torch.randn(r, 256, generator=gen).to(dev, torch.bfloat16)
+        dgot = geo_embedding_bwd(d_idx, a_idx, amap, g, 256)
+        dref = geo_embedding_bwd_plain(d_idx, a_idx, amap, g, 256)
+        err = max(float((a - b).abs().max()) for a, b in zip(dgot, dref))
+        top = max(float(b.abs().max()) for b in dref)
+    print(f"[kernels] geo_embedding_bwd R={r} H=256 k={k} bf16 cotangent: max abs err "
+          f"{err:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g}); argmax map: {map_mism} of "
+          f"{amap.numel()} entries differ from the plain argmax (near-ties within rounding)",
+          flush=True)
+    if not err <= 1e-4 * top:
+        fail("geo_embedding_bwd kernel outside tolerance")
+    if map_mism > 1e-3 * amap.numel():
+        fail(f"geo_embedding argmax map differs from the plain argmax in {map_mism} entries "
+             f"(tol 1e-3 of {amap.numel()})")
+    ms = cuda_ms(lambda: geo_embedding_bwd(d_idx, a_idx, amap, g, 256), 5)
+    plain_ms = cuda_ms(lambda: geo_embedding_bwd_plain(d_idx, a_idx, amap, g, 256), 2)
+    rows["geo_embedding_bwd"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bytes=r * 4 + r * k * 4 + r * 256 * (1 + 2) + 4 * (2 * 256 * 256 + 256),
+        # each cotangent entry meets one basis row of each projection (the
+        # distance's, and the angle's of its winning k): dWd and dWa
+        flops=2.0 * r * 2 * 256 * 256)
+
     # ---- RPE self-attention: N = 512, D = 256, H = 4, bf16 embedding
     n, d, h = 512, 256, 4
     embed = got.reshape(n, n, d)
@@ -183,6 +237,33 @@ def phase_kernels(rng):
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bytes=n * n * d * 2 + 4 * (3 * n * d + n * h * d + n) + 4 * (n * d + n * h * d),
         flops=2.0 * n * n * (2 * h * d + 2 * d))
+
+    # ---- RPE attention backward, same inputs, random cotangents
+    ghid = torch.randn(n, d, generator=gen).to(dev)
+    gae = torch.randn(n, h, d, generator=gen).to(dev)
+    args = (q2, k2, v2, qwp, embed, mask, ghid, gae)
+    got = rpe_attention_bwd(*args)
+    ref = rpe_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv", "dqwp", "demb"), got, ref):
+        e, top = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        tol = top / 128 if name == "demb" else 1e-4 * top
+        print(f"[kernels] rpe_attention_bwd {name}: max abs err {e:.3g} (tol {tol:.3g}"
+              f"{', one bf16 step at max|ref|' if name == 'demb' else ', 1e-4 * max|ref|'})",
+              flush=True)
+        if not e <= tol:
+            fail(f"rpe_attention_bwd kernel outside tolerance in {name}")
+        err = max(err, e)
+    ms = cuda_ms(lambda: rpe_attention_bwd(*args), 10)
+    plain_ms = cuda_ms(lambda: rpe_attention_bwd_plain(*args), 3)
+    rows["rpe_attention_bwd"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        # the embedding read once and its gradient written once (bf16), the
+        # rest fp32: q2 k2 v2 ghid dq dk dv (N, D), qwp gae dqwp (N, H, D), mask
+        bytes=2 * n * n * d * 2 + 4 * (7 * n * d + 3 * n * h * d + n),
+        # forward recompute (scores) and the eight products of the backward
+        flops=2.0 * n * n * d * (5 * h + 5))
 
     # ---- Sinkhorn: (256, 65, 65) x 100
     p, kk = 256, 64
@@ -206,6 +287,42 @@ def phase_kernels(rng):
     rows["sinkhorn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bytes=4 * (2 * p * m1 * m1 + 2 * p * m1),
                             flops=100 * 2 * 5.0 * p * m1 * m1)
+
+    # ---- Sinkhorn backward at the training shape: (128, 65, 65) x 100, a
+    # cotangent on valid entries only (the fine loss reads nothing else)
+    p = 128
+    scores = torch.randn(p, kk, kk, generator=gen).to(dev)
+    rmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
+    cmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
+    padded, log_mu, log_nu, _ = sinkhorn_inputs(scores, rmask, cmask,
+                                                torch.tensor(1.0, device=dev))
+    g = torch.randn(padded.shape, generator=gen).to(dev) * (padded > -1e5)
+    got = sinkhorn_bwd(padded, log_mu, log_nu, g, 100)
+    ref = sinkhorn_bwd_plain(padded, log_mu, log_nu, g, 100)
+    err = 0.0
+    # ds within 1e-4 of its largest value; dmu / dnu, the marginals'
+    # cotangents summed over all 100 reverse steps, within 1e-3: there the
+    # fp32 plain loop itself is about 1e-4 off the float64 loop printed below
+    for name, a, b, frac in zip(("ds", "dmu", "dnu"), got, ref, (1e-4, 1e-3, 1e-3)):
+        e, top = float((a - b).abs().max()), float(b.abs().max())
+        print(f"[kernels] sinkhorn_bwd ({p}, {m1}, {m1}) x 100 {name}: max abs err {e:.3g} "
+              f"(tol {frac:g} * max|ref| = {frac * top:.3g})", flush=True)
+        if not e <= frac * top:
+            fail(f"sinkhorn_bwd kernel outside tolerance in {name}")
+        err = max(err, e)
+    ref64 = sinkhorn_bwd_plain(padded.double(), log_mu.double(), log_nu.double(), g.double(), 100)
+    for name, a, b, c in zip(("ds", "dmu", "dnu"), got, ref, ref64):
+        top = float(c.abs().max())
+        print(f"[kernels] sinkhorn_bwd {name} against a float64 loop, max abs err / max|ref|: "
+              f"kernel {float((a.double() - c).abs().max()) / top:.3g}, fp32 plain loop "
+              f"{float((b.double() - c).abs().max()) / top:.3g}", flush=True)
+    ms = cuda_ms(lambda: sinkhorn_bwd(padded, log_mu, log_nu, g, 100), 10)
+    plain_ms = cuda_ms(lambda: sinkhorn_bwd_plain(padded, log_mu, log_nu, g, 100), 2)
+    # per iteration and entry: recompute 2 x 5 operations, reverse 2 x 7
+    # (add, sub, add, exp, mul, sub, add)
+    rows["sinkhorn_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bytes=4 * (3 * p * m1 * m1 + 4 * p * m1),
+                                flops=100 * (2 * 5.0 + 2 * 7.0) * p * m1 * m1)
     return rows
 
 
@@ -227,7 +344,8 @@ def _pair(arr, n, m, device):
         src_points=t(arr["src_points"]), src_raw_points=t(arr["src_raw_points"]),
         src_normals=t(nrm["src"]), src_feats=ones,
         src_count=torch.tensor(n, device=device), tgt_points=t(arr["tgt_points"]),
-        tgt_normals=t(nrm["tgt"]), tgt_feats=ones, tgt_count=torch.tensor(m, device=device))
+        tgt_normals=t(nrm["tgt"]), tgt_feats=ones, tgt_count=torch.tensor(m, device=device),
+        rot=t(arr["rot"]), trans=t(arr["trans"]))
 
 
 def _cos(a, b):
@@ -243,9 +361,10 @@ def phase_forward(cfg, rng):
     gpu = RoITr(cfg, device="cuda", seed=0)
     cpu = RoITr(cfg, device="cpu", seed=0)
     t0 = time.time()
-    og = gpu(_pair(arr, 3900, 3600, "cuda"))
-    torch.cuda.synchronize()
-    oc = cpu(_pair(arr, 3900, 3600, "cpu"))
+    with torch.no_grad():
+        og = gpu(_pair(arr, 3900, 3600, "cuda"))
+        torch.cuda.synchronize()
+        oc = cpu(_pair(arr, 3900, 3600, "cpu"))
     print(f"[forward] bucket 4096 card + CPU forward in {time.time() - t0:.1f} s", flush=True)
     og = {k: v.cpu() for k, v in og.items()}
     for key in ("src_nodes", "tgt_nodes", "src_node_corr_indices", "tgt_node_corr_indices",
@@ -277,7 +396,7 @@ def phase_forward(cfg, rng):
 def phase_serving(cfg, state_dict, rng):
     """Matcher.match at full 3DMatch width, bucket 32768; returns launches."""
     from roitr_torch.data.synthetic import make_pair_arrays
-    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
     from roitr_torch.serving import Matcher
 
     matcher = Matcher(cfg, state_dict, device="cuda", descriptors=True)
@@ -310,10 +429,128 @@ def phase_serving(cfg, state_dict, rng):
     launches = dict(launch_counts)
     print(f"[serving] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches over 3 requests: {launches}", flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
+    backward = [k for k, v in launches.items() if v and k not in FORWARD_KERNELS]
+    if backward:
+        fail(f"backward kernels launched while serving: {backward}")
     return launches
+
+
+def _grad_step(model, pair):
+    """Forward, losses and backward of one train step (no optimizer):
+    (losses, {name: gradient on the CPU})."""
+    from roitr_torch.losses import overall_loss
+
+    model.zero_grad(set_to_none=True)
+    out = model(pair, train=True, with_gt=True, generator=torch.Generator().manual_seed(0))
+    losses = overall_loss(model.cfg, out, pair.rot, pair.trans)
+    losses["loss"].backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().double()
+             for k, p in model.named_parameters()}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def phase_train_parity(cfg, rng):
+    """One train step's forward, losses and backward at the 4096 bucket on
+    the card (kernels, the three backward kernels included) and on the CPU
+    (plain versions): same weights, fp32 storage, same Gumbel noise."""
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.models.roitr import RoITr
+
+    cfg = cfg.replace(geo_embedding_storage="fp32")
+    arr = make_pair_arrays(rng, 4096, 3900, 3600)
+    t0 = time.time()
+    lg, gg = _grad_step(RoITr(cfg, device="cuda", seed=0), _pair(arr, 3900, 3600, "cuda"))
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    lc, gc = _grad_step(RoITr(cfg, device="cpu", seed=0), _pair(arr, 3900, 3600, "cpu"))
+    print(f"[train parity] bucket 4096: card step {t_card:.1f} s, CPU step "
+          f"{time.time() - t0:.1f} s; losses card {lg} CPU {lc}", flush=True)
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+    norms = {k: float(v.norm()) for k, v in gc.items()}
+    floor = 1e-3 * max(norms.values())
+    worst, worst_key = 0.0, ""
+    for k in gc:
+        rel = float((gg[k] - gc[k]).norm()) / max(norms[k], floor)
+        if rel > worst:
+            worst, worst_key = rel, k
+    flat_g = torch.cat([v.flatten() for v in gg.values()])
+    flat_c = torch.cat([v.flatten() for v in gc.values()])
+    cos = float(flat_g @ flat_c / (flat_g.norm() * flat_c.norm()))
+    finite = all(torch.isfinite(v).all() for v in gg.values())
+    print(f"[train parity] losses: largest relative difference {loss_err:.3g} (tol 1e-3); "
+          f"gradients of {len(gc)} parameters: cosine over all {cos:.7f} (tol >= 0.9999), "
+          f"worst |card - CPU| / max(|CPU|, 1e-3 * largest |CPU|) {worst:.3g} in {worst_key} "
+          f"(tol 1e-2); finite on the card: {finite}", flush=True)
+    if not (finite and loss_err <= 1e-3 and cos >= 0.9999 and worst <= 1e-2):
+        fail("card train step disagrees with the CPU train step")
+
+
+def phase_training(rng):
+    """Trainer at full 3DMatch width from configs/train/tdmatch.yaml: 3 train
+    steps and 1 validation step on synthetic pairs of 20k-30k points in the
+    32768 bucket. Returns the launch counts of the run and its step times."""
+    from roitr_torch.config import load_config
+    from roitr_torch.data.synthetic import SyntheticPairs
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.train.trainer import Trainer
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "configs", "train", "tdmatch.yaml"),
+                      max_epoch=1, training_max_iter=3, val_max_iter=1, verbose_freq=1)
+    seed = int(rng.randint(1 << 30))
+    t0 = time.time()
+    train_set = SyntheticPairs(3, 32768, counts=(20000, 30000), seed=seed)
+    val_set = SyntheticPairs(1, 32768, counts=(20000, 30000), seed=seed + 100)
+    train_set = [train_set[i] for i in range(len(train_set))]  # host normals up front
+    val_set = [val_set[0]]
+    print(f"[training] {len(train_set)} + {len(val_set)} synthetic pairs with normals in "
+          f"{time.time() - t0:.1f} s (host); counts "
+          f"{[(int(d['src_count']), int(d['tgt_count'])) for d in train_set + val_set]}",
+          flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            trainer = Trainer(cfg, train_set, val_set, device="cuda", time_steps=True)
+            before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.time()
+            best = trainer.train()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            events = [json.loads(line) for line in
+                      open(os.path.join("snapshot", cfg.exp_dir, "events.jsonl"))]
+            ckpts = sorted(os.listdir(trainer.ckpt_dir))
+        finally:
+            os.chdir(cwd)
+    steps = [e for e in events if e["phase"] == "train"]
+    for i, (t, e) in enumerate(zip(trainer.step_times, steps)):
+        print(f"[training] step {i}: forward {t['forward_ms']:.1f} ms, backward "
+              f"{t['backward_ms']:.1f} ms, optimizer {t['optimizer_ms']:.1f} ms; running "
+              f"loss {e['loss']:.4f}, grads_finite {e['grads_finite']:.0f}", flush=True)
+    changed = sum(not torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
+    print(f"[training] {trainer.step} train steps + {cfg.val_max_iter} validation step in "
+          f"{wall:.1f} s; max_memory_allocated {peak / 2**30:.2f} GiB; {changed} of "
+          f"{len(before)} tensors changed; val {best}; checkpoints {ckpts}; launches {launches}",
+          flush=True)
+    if trainer.step != 3 or len(steps) != 3:
+        fail(f"expected 3 train steps, ran {trainer.step}")
+    if not all(np.isfinite(e["loss"]) and e["grads_finite"] == 1.0 for e in steps):
+        fail("a train step's loss or gradients were not finite")
+    if not np.isfinite(best["loss"]) or changed == 0:
+        fail("validation loss not finite, or the parameters did not change")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the training path: {missing}")
+    return launches, trainer.step_times, peak
 
 
 SOURCES = {
@@ -323,6 +560,12 @@ SOURCES = {
     "rpe_attention": ("roitr_torch/csrc/rpe_attention.cu",
                       "roitr_tpu/ops/pallas/rpe_attention_kernel.py:119"),
     "sinkhorn": ("roitr_torch/csrc/sinkhorn.cu", "roitr_tpu/ops/pallas/sinkhorn_kernel.py:65"),
+    "sinkhorn_bwd": ("roitr_torch/csrc/sinkhorn.cu",
+                     "roitr_tpu/ops/pallas/sinkhorn_kernel.py:135"),
+    "rpe_attention_bwd": ("roitr_torch/csrc/rpe_attention.cu",
+                          "roitr_tpu/ops/pallas/rpe_attention_kernel.py:146"),
+    "geo_embedding_bwd": ("roitr_torch/csrc/geo_embedding.cu",
+                          "roitr_tpu/ops/pallas/geo_embedding_kernel.py:190"),
 }
 
 
@@ -336,7 +579,9 @@ def main() -> int:
     rows = phase_kernels(rng)
     cfg = Config(benchmark="3DMatch")
     state_dict = phase_forward(cfg, rng)
-    launches = phase_serving(cfg, state_dict, rng)
+    phase_serving(cfg, state_dict, rng)
+    phase_train_parity(cfg, rng)
+    launches, _, _ = phase_training(rng)
 
     kernels = []
     for name, row in rows.items():

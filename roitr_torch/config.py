@@ -39,7 +39,9 @@ class Config:
     factor: Optional[int] = None
 
     # ---- numerics ----
-    compute_dtype: str = "float32"  # float32 | bfloat16 (geometry stays fp32)
+    # float32 | bfloat16 (geometry stays fp32); the port computes in float32
+    # and refuses bfloat16 (a later slice)
+    compute_dtype: str = "float32"
 
     # ---- optim ----
     optimizer: str = "adam"
@@ -108,7 +110,9 @@ class Config:
     # backbone neighborhood search: "exact" only in the port ("approx" is
     # a TPU-only operator and raises)
     knn_method: str = "exact"
-    # training-only option of the JAX package; inference ignores it
+    # recompute the backbone's local attention in the backward instead of
+    # keeping its activations (the JAX package's memory lever); not ported:
+    # the port refuses True
     remat_local: bool = False
     # storage dtype of the global transformer's (N, N, hidden) geometric
     # embedding: "bf16" (default; halves the bytes the RPE attention reads)

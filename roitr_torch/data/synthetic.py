@@ -2,7 +2,8 @@
 
 Counterpart of roitr_tpu/data/synthetic.py: surface-like local structure
 (so PCA normals are meaningful), a random SO(3) ground-truth transform, and
-prefix-packed padding to a bucket.
+prefix-packed padding to a bucket. `SyntheticPairs` serves such pairs as a
+dataset of preprocessed items, normals included.
 """
 
 from __future__ import annotations
@@ -60,3 +61,36 @@ def make_pair_arrays(rng: np.random.RandomState, bucket: int, n_valid: int, m_va
         "rot": rot,
         "trans": trans,
     }
+
+
+class SyntheticPairs:
+    """A dataset of `n` seeded synthetic pairs in one bucket, each item the
+    preprocessed dict a training dataset yields: points, normals (kNN PCA,
+    redirected to the origin as data/preprocess.py does), ones as features,
+    counts and the GT transform. Item i draws its point counts uniformly
+    from `counts` with RandomState(seed + i)."""
+
+    def __init__(self, n: int, bucket: int, counts=None, seed: int = 0, normal_knn: int = 33):
+        self.n, self.bucket, self.seed, self.normal_knn = n, bucket, seed, normal_knn
+        self.counts = counts or (bucket - bucket // 8, bucket)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        from roitr_torch.data.preprocess import estimate_normals_np, normal_redirect_np
+
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        rng = np.random.RandomState(self.seed + i)
+        lo, hi = self.counts
+        n_valid, m_valid = (int(c) for c in rng.randint(lo, hi + 1, size=2))
+        arr = make_pair_arrays(rng, self.bucket, n_valid, m_valid)
+        for side, c in (("src", n_valid), ("tgt", m_valid)):
+            pts = arr[f"{side}_points"]
+            nrm = np.zeros_like(pts)
+            nrm[:c] = normal_redirect_np(pts[:c], estimate_normals_np(pts[:c], self.normal_knn),
+                                         np.zeros(3, np.float32))
+            arr[f"{side}_normals"] = nrm
+            arr[f"{side}_feats"] = np.ones((self.bucket, 1), np.float32)
+        return arr

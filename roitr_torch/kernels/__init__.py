@@ -1,11 +1,13 @@
 """Hand-written Hopper kernels of the port, one module per TPU kernel.
 
 Layout mirrors roitr_tpu/ops/pallas/: each `*_kernel.py` holds the ctypes
-wrapper of one CUDA kernel (sources in roitr_torch/csrc/) and its plain
-PyTorch version. A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel or raises. `launch_counts` counts the
-kernel launches of each wrapper (never the plain runs), so a run can show
-which kernels its path went through.
+wrappers of one CUDA source's kernels (sources in roitr_torch/csrc/), a
+forward and, where the TPU kernel had one, a backward, each beside its
+plain PyTorch version, and the `torch.autograd.Function` that joins them.
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises. `launch_counts` counts the kernel launches
+of each wrapper (never the plain runs), so a run can show which kernels
+its path went through.
 """
 
 from __future__ import annotations
@@ -20,7 +22,12 @@ launch_counts: Dict[str, int] = {
     "geo_embedding": 0,
     "rpe_attention": 0,
     "sinkhorn": 0,
+    "sinkhorn_bwd": 0,
+    "rpe_attention_bwd": 0,
+    "geo_embedding_bwd": 0,
 }
+# the kernels that inference runs; training adds the three backward kernels
+FORWARD_KERNELS = ("fps", "geo_embedding", "rpe_attention", "sinkhorn")
 
 
 def reset_launch_counts() -> None:

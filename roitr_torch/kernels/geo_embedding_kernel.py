@@ -1,13 +1,17 @@
-"""Fused geometric structure embedding (csrc/geo_embedding.cu).
+"""Fused geometric structure embedding and its backward (csrc/geo_embedding.cu).
 
-Replaces roitr_tpu/ops/pallas/geo_embedding_kernel.py `_kernel` via
-`_pallas_forward` / `fused_geo_embedding`:
+Replaces roitr_tpu/ops/pallas/geo_embedding_kernel.py: `_kernel` via
+`_pallas_forward`,
 
     out = [sin(d w), cos(d w)] @ Wd + bd + max_k([sin(a_k w), cos(a_k w)] @ Wa) + ba
 
 for every flattened node pair, with the interleaved sinusoidal basis of
-models/embeddings.py. The kernel never builds the (R, k, H) basis and
-writes the output once, in the storage dtype.
+models/embeddings.py (the kernel never builds the (R, k, H) basis and
+writes the output once, in the storage dtype; under differentiation it also
+writes the int8 (R, H) map of the winning k), and `_bwd_kernel` via
+`_pallas_backward` (the weight gradients from the map and the cotangent,
+dba = dbd; the indices get none). `geo_embedding` is the differentiable
+entry.
 """
 
 from __future__ import annotations
@@ -33,46 +37,141 @@ def sinusoidal_basis(x: torch.Tensor, hidden: int) -> torch.Tensor:
     return torch.stack([torch.sin(om), torch.cos(om)], dim=-1).reshape(x.shape + (hidden,))
 
 
-def geo_embedding_plain(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32):
+def geo_embedding_plain(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32,
+                        with_argmax: bool = False):
     """d_idx (R,), a_idx (R, k), wd/wa (H, H) (in, out), bd/ba (H,) ->
-    (R, H) in out_dtype; fp32 math (roitr_tpu `_xla_forward`)."""
+    (R, H) in out_dtype, and with_argmax the (R, H) int8 first winning k;
+    math in the weights' dtype (roitr_tpu `_xla_forward`)."""
     hidden = wd.shape[1]
     y = sinusoidal_basis(d_idx, hidden) @ wd + bd
     ya = sinusoidal_basis(a_idx, hidden) @ wa  # (R, k, H)
-    return (y + torch.amax(ya, dim=-2) + ba).to(out_dtype)
+    out = (y + torch.amax(ya, dim=-2) + ba).to(out_dtype)
+    if with_argmax:
+        return out, torch.argmax(ya, dim=-2).to(torch.int8)  # first maximum
+    return out
 
 
-def fused_geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32):
+def geo_embedding_bwd_plain(d_idx, a_idx, amax, g, hidden: int):
+    """Cotangent g (R, H) and the argmax map -> (dwd, dbd, dwa), dba == dbd
+    (roitr_tpu `_pallas_backward`); math in fp32, or in g's dtype if wider."""
+    dt = torch.promote_types(g.dtype, torch.float32)
+    g = g.to(dt)
+    dwd = sinusoidal_basis(d_idx.to(dt), hidden).t() @ g
+    e_a = sinusoidal_basis(a_idx.to(dt), hidden)  # (R, k, H)
+    k = a_idx.shape[1]
+    sel = amax.long()[:, None, :] == torch.arange(k, device=g.device)[None, :, None]  # (R, k, H)
+    dwa = torch.einsum("rkh,rkd->dh", sel.to(dt) * g[:, None, :], e_a)
+    return dwd, g.sum(dim=0), dwa
+
+
+def _kernel_args(d_idx, a_idx, hidden: int, wd=None, bd=None, wa=None, ba=None):
+    """The kernels' checked fp32 inputs: indices, frequencies and, for the
+    forward, the even / odd rows of the (in, out) weights
+    (e @ W == sin @ W[0::2] + cos @ W[1::2]) and the biases."""
+    dev = d_idx.device
+    r, k = a_idx.shape
+    if hidden % 2 or k < 1 or (wd is not None and tuple(wd.shape) != (hidden, hidden)):
+        raise ValueError(f"geo_embedding: hidden {hidden} must be even, wd square, k >= 1 "
+                         f"(got hidden {hidden}, k {k})")
+    h2 = hidden // 2
+    args = [(d_idx, "d_idx", (r,)), (a_idx, "a_idx", (r, k)), (div_term(hidden, dev), "div", (h2,))]
+    if wd is not None:
+        args += [(wd[0::2].contiguous(), "wd[0::2]", (h2, hidden)),
+                 (wd[1::2].contiguous(), "wd[1::2]", (h2, hidden)), (bd, "bd", (hidden,)),
+                 (wa[0::2].contiguous(), "wa[0::2]", (h2, hidden)),
+                 (wa[1::2].contiguous(), "wa[1::2]", (h2, hidden)), (ba, "ba", (hidden,))]
+    for t, name, shape in args:
+        check_cuda(t, name, torch.float32, shape, dev)
+    return [t for t, _, _ in args]
+
+
+def fused_geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32,
+                        with_argmax: bool = False):
     """Same function and arguments as geo_embedding_plain; one kernel
     launch on the card."""
     if route(d_idx) == "plain":
-        return geo_embedding_plain(d_idx, a_idx, wd, bd, wa, ba, out_dtype)
+        return geo_embedding_plain(d_idx, a_idx, wd, bd, wa, ba, out_dtype, with_argmax)
+    from roitr_torch.kernels.build import function
+
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"geo_embedding: out_dtype {out_dtype} not fp32 or bf16")
+    r, k = a_idx.shape
+    hidden = wd.shape[1]
+    args = _kernel_args(d_idx, a_idx, hidden, wd, bd, wa, ba)
+    dev = d_idx.device
+    out = torch.empty((r, hidden), dtype=out_dtype, device=dev)
+    amax = torch.empty((r, hidden), dtype=torch.int8, device=dev) if with_argmax else None
+    fn = function("geo_embedding", "roitr_geo_embedding",
+                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    err = fn(*(ptr(t) for t in args), ptr(out),
+             ptr(amax) if with_argmax else ctypes.c_void_p(None), r, k, hidden,
+             int(out_dtype == torch.bfloat16), stream_ptr(dev))
+    check_launch(err, "geo_embedding")
+    launch_counts["geo_embedding"] += 1
+    return (out, amax) if with_argmax else out
+
+
+# blocks of the backward's row reduction: about two waves of the H100's 132 SMs
+_BWD_TARGET_BLOCKS = 264
+
+
+def geo_embedding_bwd(d_idx, a_idx, amax, g, hidden: int):
+    """Same function and arguments as geo_embedding_bwd_plain; one launch of
+    the backward kernel and its chunk reduction on the card."""
+    if route(d_idx) == "plain":
+        return geo_embedding_bwd_plain(d_idx, a_idx, amax, g, hidden)
     from roitr_torch.kernels.build import function
 
     dev = d_idx.device
     r, k = a_idx.shape
-    hidden = wd.shape[1]
-    if hidden % 2 or k < 1 or tuple(wd.shape) != (hidden, hidden):
-        raise ValueError(f"geo_embedding: hidden {hidden} must be even, wd square, k >= 1 "
-                         f"(got wd {tuple(wd.shape)}, k {k})")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"geo_embedding: out_dtype {out_dtype} not fp32 or bf16")
-    div = div_term(hidden, dev)
-    # even/odd rows of the (in, out) weights: e @ W == sin @ W[0::2] + cos @ W[1::2]
-    wde, wdo = wd[0::2].contiguous(), wd[1::2].contiguous()
-    wae, wao = wa[0::2].contiguous(), wa[1::2].contiguous()
+    d_idx, a_idx, div = _kernel_args(d_idx, a_idx, hidden)
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"geo_embedding_bwd: cotangent dtype {g.dtype} not fp32 or bf16")
+    check_cuda(g, "g", g.dtype, (r, hidden), dev)
+    check_cuda(amax, "amax", torch.int8, (r, hidden), dev)
     h2 = hidden // 2
-    args = [(d_idx, "d_idx", (r,)), (a_idx, "a_idx", (r, k)), (div, "div", (h2,)),
-            (wde, "wd[0::2]", (h2, hidden)), (wdo, "wd[1::2]", (h2, hidden)),
-            (bd, "bd", (hidden,)), (wae, "wa[0::2]", (h2, hidden)),
-            (wao, "wa[1::2]", (h2, hidden)), (ba, "ba", (hidden,))]
-    for t, name, shape in args:
-        check_cuda(t, name, torch.float32, shape, dev)
-    out = torch.empty((r, hidden), dtype=out_dtype, device=dev)
-    fn = function("geo_embedding", "roitr_geo_embedding",
-                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    err = fn(*(ptr(t) for t, _, _ in args), ptr(out), r, k, hidden,
-             int(out_dtype == torch.bfloat16), stream_ptr(dev))
-    check_launch(err, "geo_embedding")
-    launch_counts["geo_embedding"] += 1
-    return out
+    tiles = -(-h2 // 64) * -(-hidden // 128)  # the kernel's (64, 128) output tiles
+    chunks = max(1, min(-(-_BWD_TARGET_BLOCKS // tiles), -(-r // 32)))
+    part = torch.empty((chunks, 4, h2, hidden), dtype=torch.float32, device=dev)
+    part_db = torch.empty((chunks, hidden), dtype=torch.float32, device=dev)
+    dw = torch.empty((4, h2, hidden), dtype=torch.float32, device=dev)
+    db = torch.empty((hidden,), dtype=torch.float32, device=dev)
+    fn = function("geo_embedding", "roitr_geo_embedding_bwd",
+                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    err = fn(ptr(d_idx), ptr(a_idx), ptr(amax), ptr(g), ptr(div), ptr(part), ptr(part_db),
+             ptr(dw), ptr(db), r, k, hidden, chunks, int(g.dtype == torch.bfloat16),
+             stream_ptr(dev))
+    check_launch(err, "geo_embedding_bwd")
+    launch_counts["geo_embedding_bwd"] += 1
+    # re-interleave the even/odd rows: W[0::2] <- dw[0], W[1::2] <- dw[1]
+    dwd = torch.stack([dw[0], dw[1]], dim=1).reshape(hidden, hidden)
+    dwa = torch.stack([dw[2], dw[3]], dim=1).reshape(hidden, hidden)
+    return dwd, db, dwa
+
+
+class _GeoEmbedding(torch.autograd.Function):
+    """Forward: fused_geo_embedding with the argmax map (roitr_tpu `_fwd`);
+    saves the indices and the map. Backward: geo_embedding_bwd."""
+
+    @staticmethod
+    def forward(ctx, d_idx, a_idx, wd, bd, wa, ba, out_dtype):
+        out, amax = fused_geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype,
+                                        with_argmax=True)
+        ctx.hidden = wd.shape[1]
+        ctx.save_for_backward(d_idx, a_idx, amax)
+        ctx.mark_non_differentiable(amax)
+        return out, amax
+
+    @staticmethod
+    def backward(ctx, g, _):
+        d_idx, a_idx, amax = ctx.saved_tensors
+        dwd, dbd, dwa = geo_embedding_bwd(d_idx, a_idx, amax, g.contiguous(), ctx.hidden)
+        return None, None, dwd, dbd, dwa, dbd, None
+
+
+def geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32):
+    """Differentiable fused_geo_embedding. Without grad mode, or without a
+    weight that needs a gradient, no argmax map is written."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (wd, bd, wa, ba)):
+        return _GeoEmbedding.apply(d_idx, a_idx, wd, bd, wa, ba, out_dtype)[0]
+    return fused_geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype)

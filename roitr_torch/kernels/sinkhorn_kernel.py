@@ -1,9 +1,12 @@
-"""Log-domain Sinkhorn iterations (csrc/sinkhorn.cu).
+"""Log-domain Sinkhorn iterations and their reverse mode (csrc/sinkhorn.cu).
 
-Replaces roitr_tpu/ops/pallas/sinkhorn_kernel.py `_sinkhorn_kernel` via
-`_pallas_forward` / `sinkhorn_iterate_pallas`: a fixed `num_iter` of
-u = mu - lse_n(s + v), v = nu - lse_m(s + u) from u = v = 0, returning
-s + u + v (the caller subtracts the normaliser).
+Replaces roitr_tpu/ops/pallas/sinkhorn_kernel.py: `_sinkhorn_kernel` via
+`_pallas_forward` (a fixed `num_iter` of u = mu - lse_n(s + v),
+v = nu - lse_m(s + u) from u = v = 0, returning s + u + v; the caller
+subtracts the normaliser) and `_sinkhorn_bwd_kernel` via `_pallas_backward`
+(recompute of the u/v trajectory, then the reverse loop). `sinkhorn` is the
+differentiable entry: its forward is one kernel launch on the card, its
+backward another.
 """
 
 from __future__ import annotations
@@ -15,15 +18,58 @@ import torch
 from roitr_torch.kernels import check_cuda, check_launch, launch_counts, ptr, route, stream_ptr
 
 
-def sinkhorn_plain(padded, log_mu, log_nu, num_iter: int):
-    """padded (P, M1, N1), log_mu (P, M1), log_nu (P, N1) -> s + u + v
-    (the loop of roitr_tpu/ops/sinkhorn.py:125-134)."""
+def _trajectory(padded, log_mu, log_nu, num_iter: int):
+    """[(u_1, v_1), ..., (u_T, v_T)] of the loop (roitr_tpu/ops/sinkhorn.py:125-134)."""
     u = torch.zeros_like(log_mu)
     v = torch.zeros_like(log_nu)
+    out = []
     for _ in range(num_iter):
         u = log_mu - torch.logsumexp(padded + v[:, None, :], dim=2)
         v = log_nu - torch.logsumexp(padded + u[:, :, None], dim=1)
+        out.append((u, v))
+    return out
+
+
+def sinkhorn_plain(padded, log_mu, log_nu, num_iter: int):
+    """padded (P, M1, N1), log_mu (P, M1), log_nu (P, N1) -> s + u + v."""
+    u, v = _trajectory(padded, log_mu, log_nu, num_iter)[-1]
     return padded + u[:, :, None] + v[:, None, :]
+
+
+def sinkhorn_bwd_plain(padded, log_mu, log_nu, g, num_iter: int):
+    """Cotangent g of s + u + v -> (ds, dmu, dnu): the reverse loop of
+    roitr_tpu `_sinkhorn_bwd_kernel`, with a_t / b_t the row / column
+    softmaxes of step t."""
+    traj = _trajectory(padded, log_mu, log_nu, num_iter)
+    ds = g.clone()
+    du = g.sum(dim=2)
+    dv = g.sum(dim=1)
+    dmu = torch.zeros_like(log_mu)
+    dnu = torch.zeros_like(log_nu)
+    for t in range(num_iter - 1, -1, -1):
+        u_t, v_t = traj[t]
+        v_prev = traj[t - 1][1] if t > 0 else torch.zeros_like(log_nu)
+        b_t = torch.exp(padded + u_t[:, :, None] - log_nu[:, None, :] + v_t[:, None, :])
+        dnu = dnu + dv
+        dvb = dv[:, None, :] * b_t
+        ds = ds - dvb
+        du = du - dvb.sum(dim=2)
+        a_t = torch.exp(padded + v_prev[:, None, :] - log_mu[:, :, None] + u_t[:, :, None])
+        dmu = dmu + du
+        dua = du[:, :, None] * a_t
+        ds = ds - dua
+        dv = -dua.sum(dim=1)
+        du = torch.zeros_like(du)
+    return ds, dmu, dnu
+
+
+def _check(padded, log_mu, log_nu):
+    dev = padded.device
+    p, m1, n1 = padded.shape
+    check_cuda(padded, "scores", torch.float32, (p, m1, n1), dev)
+    check_cuda(log_mu, "log_mu", torch.float32, (p, m1), dev)
+    check_cuda(log_nu, "log_nu", torch.float32, (p, n1), dev)
+    return dev, p, m1, n1
 
 
 def sinkhorn_iterate(padded, log_mu, log_nu, num_iter: int):
@@ -33,11 +79,7 @@ def sinkhorn_iterate(padded, log_mu, log_nu, num_iter: int):
         return sinkhorn_plain(padded, log_mu, log_nu, num_iter)
     from roitr_torch.kernels.build import function
 
-    dev = padded.device
-    p, m1, n1 = padded.shape
-    check_cuda(padded, "scores", torch.float32, (p, m1, n1), dev)
-    check_cuda(log_mu, "log_mu", torch.float32, (p, m1), dev)
-    check_cuda(log_nu, "log_nu", torch.float32, (p, n1), dev)
+    dev, p, m1, n1 = _check(padded, log_mu, log_nu)
     out = torch.empty_like(padded)
     fn = function("sinkhorn", "roitr_sinkhorn",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -46,3 +88,46 @@ def sinkhorn_iterate(padded, log_mu, log_nu, num_iter: int):
     check_launch(err, "sinkhorn")
     launch_counts["sinkhorn"] += 1
     return out
+
+
+def sinkhorn_bwd(padded, log_mu, log_nu, g, num_iter: int):
+    """Same function and arguments as sinkhorn_bwd_plain; one kernel launch
+    on the card."""
+    if route(padded) == "plain":
+        return sinkhorn_bwd_plain(padded, log_mu, log_nu, g, num_iter)
+    from roitr_torch.kernels.build import function
+
+    dev, p, m1, n1 = _check(padded, log_mu, log_nu)
+    check_cuda(g, "g", torch.float32, (p, m1, n1), dev)
+    ds = torch.empty_like(padded)
+    dmu = torch.empty_like(log_mu)
+    dnu = torch.empty_like(log_nu)
+    fn = function("sinkhorn", "roitr_sinkhorn_bwd",
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    err = fn(ptr(padded), ptr(log_mu), ptr(log_nu), ptr(g), ptr(ds), ptr(dmu), ptr(dnu), p, m1,
+             n1, num_iter, stream_ptr(dev))
+    check_launch(err, "sinkhorn_bwd")
+    launch_counts["sinkhorn_bwd"] += 1
+    return ds, dmu, dnu
+
+
+class _Sinkhorn(torch.autograd.Function):
+    """Forward: sinkhorn_iterate; saves its inputs (roitr_tpu `_vjp_fwd`).
+    Backward: sinkhorn_bwd."""
+
+    @staticmethod
+    def forward(ctx, padded, log_mu, log_nu, num_iter):
+        ctx.num_iter = num_iter
+        ctx.save_for_backward(padded, log_mu, log_nu)
+        return sinkhorn_iterate(padded, log_mu, log_nu, num_iter)
+
+    @staticmethod
+    def backward(ctx, g):
+        padded, log_mu, log_nu = ctx.saved_tensors
+        ds, dmu, dnu = sinkhorn_bwd(padded, log_mu, log_nu, g.contiguous(), ctx.num_iter)
+        return ds, dmu, dnu, None
+
+
+def sinkhorn(padded, log_mu, log_nu, num_iter: int):
+    """Differentiable sinkhorn_iterate."""
+    return _Sinkhorn.apply(padded, log_mu, log_nu, num_iter)

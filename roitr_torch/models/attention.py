@@ -6,9 +6,9 @@ model/transformer/{attention,geoattention}.py). As in the JAX package, the
 global RPE attention never builds the projected (N, N, d) positional
 tensors: q . proj_p(e) is computed as (q W_p) . e and sum_m A proj_vp(e)
 as proj_vp(sum_m A e), and the (N, N, d) embedding is read by one kernel
-per layer (kernels/rpe_attention_kernel.py). Softmaxes are mask-safe: a
-row with no valid key gives zeros. Module attribute paths follow the
-reference state_dict layout.
+per layer (kernels/rpe_attention_kernel.py), and by another in the
+backward. Softmaxes are mask-safe: a row with no valid key gives zeros.
+Module attribute paths follow the reference state_dict layout.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from roitr_torch.kernels.rpe_attention_kernel import fused_rpe_self_attention
+from roitr_torch.kernels.rpe_attention_kernel import rpe_attention
 from roitr_torch.models.embeddings import PPFEmbedding
 
 
@@ -146,8 +146,8 @@ class GlobalRPESelfAttention(nn.Module):
         qwp = torch.einsum("nhc,dhc->nhd", q2.reshape(n, h, c), wp_h).contiguous()
         fmask = (torch.ones(n, dtype=torch.float32, device=x.device) if key_mask is None
                  else key_mask.to(torch.float32))
-        hidden, ae = fused_rpe_self_attention(q2.contiguous(), k2.contiguous(), v2.contiguous(),
-                                              qwp, embed.contiguous(), fmask.contiguous())
+        hidden, ae = rpe_attention(q2.contiguous(), k2.contiguous(), v2.contiguous(), qwp,
+                                   embed.contiguous(), fmask.contiguous())
         wvp_h = self.proj_vp.weight.t().reshape(d, h, c)
         pos = torch.einsum("nhd,dhc->nhc", ae, wvp_h) + self.proj_vp.bias.reshape(h, c)[None]
         return hidden, pos.reshape(n, d)

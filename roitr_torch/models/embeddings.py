@@ -11,7 +11,7 @@ import math
 import torch
 from torch import nn
 
-from roitr_torch.kernels.geo_embedding_kernel import fused_geo_embedding, sinusoidal_basis
+from roitr_torch.kernels.geo_embedding_kernel import geo_embedding, sinusoidal_basis
 from roitr_torch.ops.geometry import masked_pairwise_sq_dist, pairwise_sq_dist, prefix_mask
 from roitr_torch.ops.topk import topk
 
@@ -45,7 +45,8 @@ class GeometricStructureEmbedding(nn.Module):
     The distance and angle indices are plain torch, as in the JAX package;
     the sin/cos basis, both projections and the max over the angle_k
     neighbors run as one kernel on the card (kernels/geo_embedding_kernel.py),
-    which writes the storage dtype directly.
+    which writes the storage dtype directly; its backward is another kernel.
+    The indices get no gradient (reference: computed under no_grad).
     """
 
     def __init__(self, hidden_dim: int, sigma_d: float = 0.2, sigma_a: float = 15.0,
@@ -91,7 +92,7 @@ class GeometricStructureEmbedding(nn.Module):
         """points (N, 3) prefix-packed -> (N, N, hidden_dim) in out_dtype."""
         n = points.shape[0]
         d_indices, a_indices = self.indices(points, count)
-        out = fused_geo_embedding(
+        out = geo_embedding(
             d_indices.reshape(-1).contiguous(),
             a_indices.reshape(n * n, -1).contiguous(),
             self.proj_d.weight.t(), self.proj_d.bias,

@@ -1,8 +1,8 @@
 """Coarse and fine matching heads with fixed-capacity outputs.
 
 Counterpart of roitr_tpu/models/matching.py (reference
-model/modules.py:135-178, 216-324): every head emits fixed-size index and
-score buffers plus validity masks. Top-k ties go to the lower index
+model/modules.py:135-324): every head emits fixed-size index and score
+buffers plus validity masks. Top-k ties go to the lower index
 (ops/topk.py), as with the JAX package's lax.top_k.
 """
 
@@ -40,6 +40,39 @@ def coarse_matching(ref_feats, src_feats, ref_masks, src_masks, num_corresponden
     k = min(num_correspondences, scores.numel())
     corr_scores, flat_idx = topk(scores.reshape(-1), k)
     return CoarseCorr(flat_idx // n, flat_idx % n, corr_scores, corr_scores > 0.0)
+
+
+def gumbel_noise(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """Standard Gumbel draws -log(-log(U)), U in [tiny, 1), as
+    jax.random.gumbel. Drawn on the CPU generator and then moved, so a run
+    on the card and one on the CPU with the same seed draw the same noise."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(device)
+
+
+def gt_coarse_corr_generator(gt_corr_indices, gt_corr_overlaps, gt_corr_masks,
+                             num_targets: int, overlap_threshold: float,
+                             generator: Optional[torch.Generator] = None,
+                             gumbel: Optional[torch.Tensor] = None) -> CoarseCorr:
+    """Up to `num_targets` random GT correspondences with overlap above the
+    threshold, without replacement, by Gumbel top-k over the eligible set
+    (reference modules.py:181-213). The noise is drawn from `generator` (a
+    CPU generator, see gumbel_noise) unless given as `gumbel` (C,)."""
+    eligible = gt_corr_masks & (gt_corr_overlaps > overlap_threshold)
+    if gumbel is None:
+        if generator is None:
+            raise ValueError("gt_coarse_corr_generator needs a generator or the gumbel noise")
+        gumbel = gumbel_noise(gt_corr_overlaps.shape, generator, gt_corr_overlaps.device)
+    keys = torch.where(eligible, gumbel.to(gt_corr_overlaps.device),
+                       gumbel.new_full((), -math.inf, device=gt_corr_overlaps.device))
+    _, sel = topk(keys, min(num_targets, keys.shape[0]))
+    valid = eligible[sel]
+    zero = torch.zeros_like(sel)
+    ref_idx = torch.where(valid, gt_corr_indices[sel, 0], zero)
+    src_idx = torch.where(valid, gt_corr_indices[sel, 1], zero)
+    overlaps = torch.where(valid, gt_corr_overlaps[sel], torch.zeros_like(gt_corr_overlaps[sel]))
+    return CoarseCorr(ref_idx, src_idx, overlaps, valid)
 
 
 class FineCorr(NamedTuple):

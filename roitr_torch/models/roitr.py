@@ -1,11 +1,12 @@
-"""The RoITr coarse-to-fine matching pipeline, single pair, inference.
+"""The RoITr coarse-to-fine matching pipeline, single pair.
 
 Counterpart of roitr_tpu/models/roitr.py (reference model/RIGA_v2.py:10-180):
-backbone -> descriptor projections -> point-to-node partition -> coarse
-matching -> patch gathering -> Sinkhorn OT -> fine matching, with fixed-size
-buffers and masks wherever the reference is ragged. Outputs carry the JAX
-forward's keys. The ground-truth outputs (`with_gt=True`), training and
-packed batches belong to later slices of the port.
+backbone -> descriptor projections -> point-to-node partition -> GT patch
+correspondences (`with_gt`) -> coarse matching -> patch gathering ->
+Sinkhorn OT -> fine matching, with fixed-size buffers and masks wherever
+the reference is ragged. Outputs carry the JAX forward's keys. Training
+(`train=True`) takes sampled GT patches and a differentiable OT. Packed
+batches belong to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -19,8 +20,17 @@ from torch import nn
 
 from roitr_torch.config import Config
 from roitr_torch.models.backbone import RIPointTransformer
-from roitr_torch.models.matching import coarse_matching, fine_matching
-from roitr_torch.ops.partition import point_to_node_partition
+from roitr_torch.models.matching import (
+    coarse_matching,
+    fine_matching,
+    gt_coarse_corr_generator,
+)
+from roitr_torch.ops.partition import (
+    NodeCorrespondences,
+    node_correspondences,
+    node_occlusion_score,
+    point_to_node_partition,
+)
 from roitr_torch.ops.sinkhorn import log_sinkhorn_ot
 
 
@@ -39,7 +49,7 @@ class PairInputs(NamedTuple):
     tgt_normals: torch.Tensor  # (N, 3)
     tgt_feats: torch.Tensor  # (N, 1)
     tgt_count: torch.Tensor  # () int64
-    rot: Optional[torch.Tensor] = None  # (3, 3) GT rotation, with_gt only
+    rot: Optional[torch.Tensor] = None  # (3, 3) GT rotation src -> tgt, with_gt only
     trans: Optional[torch.Tensor] = None  # (3, 1) GT translation, with_gt only
 
 
@@ -98,6 +108,13 @@ class RoITr(nn.Module):
                 "on the card and its plain loop on the CPU")
         if not cfg.is_rigid:
             raise NotImplementedError("non-rigid (4DMatch) matching is a later slice of the port")
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {cfg.compute_dtype!r}: the port computes in float32 (bf16 "
+                "compute is a later slice)")
+        if cfg.remat_local:
+            raise NotImplementedError("remat_local: recomputing the local attention in the "
+                                      "backward is a later slice of the port")
         device = resolve_device(device)
         self.cfg = cfg
         f = cfg.channel_factor
@@ -113,15 +130,17 @@ class RoITr(nn.Module):
         self.to(device)
         self.device = device
 
-    @torch.no_grad()
-    def forward(self, pair: PairInputs, train: bool = False,
-                with_gt: bool = False) -> Dict[str, torch.Tensor]:
-        if train:
-            raise NotImplementedError("training is a later slice of the port")
-        if with_gt:
-            raise NotImplementedError(
-                "with_gt=True (GT node correspondences and occlusion scores, the Tester's "
-                "outputs) is a later slice of the port")
+    def forward(self, pair: PairInputs, train: bool = False, with_gt: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """One pair -> the JAX forward's output dict. `with_gt` adds the GT
+        node correspondences and occlusion scores (needs pair.rot/trans);
+        `train` (needs with_gt) samples GT patches with the Gumbel noise of
+        the CPU `generator`. Gradients flow as in JAX: not into coarse or
+        fine matching. Callers that want no graph run under torch.no_grad."""
+        if train and not with_gt:
+            raise ValueError("training requires with_gt=True")
+        if with_gt and (pair.rot is None or pair.trans is None):
+            raise ValueError("with_gt=True needs pair.rot and pair.trans")
         if pair.src_count.ndim != 0:
             raise NotImplementedError("packed batches are a later slice of the port")
         cfg = self.cfg
@@ -149,25 +168,52 @@ class RoITr(nn.Module):
         tgt_part = point_to_node_partition(tgt_points, tgt_nodes, cfg.point_per_patch,
                                            pair.tgt_count, tgt_node_count)
         zrow = src_points.new_zeros((1, 3))
-        src_node_knn_points = torch.cat([src_points, zrow])[src_part.node_knn_indices]
-        tgt_node_knn_points = torch.cat([tgt_points, zrow])[tgt_part.node_knn_indices]
+        src_padded_points = torch.cat([src_points, zrow])
+        tgt_padded_points = torch.cat([tgt_points, zrow])
+        src_node_knn_points = src_padded_points[src_part.node_knn_indices]
+        tgt_node_knn_points = tgt_padded_points[tgt_part.node_knn_indices]
 
-        # serving mode: the ground-truth analysis outputs are empty
+        # GT node correspondences and occlusion (reference RIGA_v2.py:91-116);
+        # empty in serving mode
         dev = src_points.device
-        c = min(cfg.max_gt_corr_candidates, tgt_nodes.shape[0] * src_nodes.shape[0])
-        out["gt_node_corr_indices"] = torch.zeros((c, 2), dtype=torch.int64, device=dev)
-        out["gt_node_corr_overlaps"] = torch.zeros((c,), dtype=torch.float32, device=dev)
-        out["gt_node_corr_masks"] = torch.zeros((c,), dtype=torch.bool, device=dev)
-        out["gt_tgt_node_occ"] = torch.zeros((tgt_nodes.shape[0],), device=dev)
-        out["gt_src_node_occ"] = torch.zeros((src_nodes.shape[0],), device=dev)
+        if with_gt:
+            gt_corr = node_correspondences(
+                tgt_nodes, src_nodes, tgt_node_knn_points, src_node_knn_points, pair.rot,
+                pair.trans, cfg.matching_radius, ref_masks=tgt_part.node_masks,
+                src_masks=src_part.node_masks, ref_knn_masks=tgt_part.node_knn_masks,
+                src_knn_masks=src_part.node_knn_masks, max_candidates=cfg.max_gt_corr_candidates)
+            gt_tgt_occ, gt_src_occ = node_occlusion_score(
+                tgt_part.node_knn_indices, src_part.node_knn_indices, tgt_padded_points,
+                src_padded_points, pair.tgt_count, pair.src_count, pair.rot, pair.trans,
+                ref_masks=tgt_part.node_masks, src_masks=src_part.node_masks,
+                ref_knn_masks=tgt_part.node_knn_masks, src_knn_masks=src_part.node_knn_masks)
+        else:
+            c = min(cfg.max_gt_corr_candidates, tgt_nodes.shape[0] * src_nodes.shape[0])
+            gt_corr = NodeCorrespondences(
+                torch.zeros((c, 2), dtype=torch.int64, device=dev),
+                torch.zeros((c,), dtype=torch.float32, device=dev),
+                torch.zeros((c,), dtype=torch.bool, device=dev))
+            gt_tgt_occ = torch.zeros((tgt_nodes.shape[0],), device=dev)
+            gt_src_occ = torch.zeros((src_nodes.shape[0],), device=dev)
+        out["gt_node_corr_indices"] = gt_corr.indices
+        out["gt_node_corr_overlaps"] = gt_corr.overlaps
+        out["gt_node_corr_masks"] = gt_corr.masks
+        out["gt_tgt_node_occ"] = gt_tgt_occ
+        out["gt_src_node_occ"] = gt_src_occ
 
-        # coarse matching (reference RIGA_v2.py:119-126)
-        corr = coarse_matching(tgt_node_feats, src_node_feats, tgt_part.node_masks,
-                               src_part.node_masks, cfg.num_est_coarse_corr,
-                               dual_normalization=True)
-        out["tgt_node_corr_indices"] = corr.ref_indices
-        out["src_node_corr_indices"] = corr.src_indices
-        out["node_corr_masks"] = corr.masks
+        # coarse matching, no gradient (reference RIGA_v2.py:119-126, no_grad)
+        est = coarse_matching(tgt_node_feats.detach(), src_node_feats.detach(),
+                              tgt_part.node_masks, src_part.node_masks, cfg.num_est_coarse_corr,
+                              dual_normalization=True)
+        out["tgt_node_corr_indices"] = est.ref_indices
+        out["src_node_corr_indices"] = est.src_indices
+        out["node_corr_masks"] = est.masks
+        if train:  # sampled GT patches (reference RIGA_v2.py:125-126)
+            corr = gt_coarse_corr_generator(gt_corr.indices, gt_corr.overlaps, gt_corr.masks,
+                                            cfg.num_gt_coarse_corr,
+                                            cfg.coarse_overlap_threshold, generator=generator)
+        else:
+            corr = est
 
         # per-correspondence patches (reference :129-147)
         tgt_idx, src_idx = corr.ref_indices, corr.src_indices
@@ -193,14 +239,17 @@ class RoITr(nn.Module):
             num_iter=cfg.sinkhorn_iters, tol=cfg.sinkhorn_tol)
         out["matching_scores"] = matching_scores
 
-        # fine matching (reference :158-169)
-        scores = matching_scores if cfg.fine_matching_use_dustbin else matching_scores[:, :-1, :-1]
+        # fine matching (reference :158-169), no gradient; the exact path in
+        # training, as the JAX train step takes it
+        scores = matching_scores.detach()
+        if not cfg.fine_matching_use_dustbin:
+            scores = scores[:, :-1, :-1]
         fine = fine_matching(
             tgt_knn_points, src_knn_points, tgt_knn_masks, src_knn_masks, scores, corr.masks,
             global_scores=corr.scores, k=cfg.fine_matching_topk, mutual=cfg.fine_matching_mutual,
             confidence_threshold=cfg.fine_matching_confidence_threshold,
             use_global_score=cfg.fine_matching_use_global_score,
-            use_dustbin=cfg.fine_matching_use_dustbin)
+            use_dustbin=cfg.fine_matching_use_dustbin, allow_fast=not train)
         out["tgt_corr_points"] = fine.ref_points
         out["src_corr_points"] = fine.src_points
         out["corr_scores"] = fine.scores

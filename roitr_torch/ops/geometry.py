@@ -76,3 +76,8 @@ def calc_ppf(points, point_normals, group_points, group_normals) -> torch.Tensor
     a2 = _angle(group_normals, vec_d)[..., None] / math.pi
     a3 = _angle(nc.expand_as(group_normals), group_normals)[..., None] / math.pi
     return torch.cat([d, a1, a2, a3], dim=-1)
+
+
+def apply_transform(points: torch.Tensor, rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """points (..., 3) x rot (3, 3) + trans (3,) or (3, 1) -> (..., 3)."""
+    return points @ rot.t() + trans.reshape(3)

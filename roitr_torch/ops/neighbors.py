@@ -56,6 +56,24 @@ def masked_knn(queries: torch.Tensor, keys: torch.Tensor, key_count, k: int,
     return idx, torch.sqrt(d2)
 
 
+def masked_min_dist(queries: torch.Tensor, keys: torch.Tensor, key_count) -> torch.Tensor:
+    """1-NN distance (no index) from each query to the valid keys: queries
+    (Q, 3), keys (N, 3) with `key_count` valid prefix rows -> (Q,) sqrt
+    distances. A min-reduce over query tiles of per-coordinate differences
+    (no x^2 - 2xy + y^2 cancellation), as in the JAX package; the (Q, N)
+    matrix never exists whole."""
+    q, n = queries.shape[0], keys.shape[0]
+    key_invalid = ~prefix_mask(n, key_count, device=keys.device)
+    inf = torch.tensor(_INF, dtype=torch.float32, device=keys.device)
+    tile = max(1, _TILE_ELEMS // 4 // max(n, 1))
+    parts = []
+    for s in range(0, q, tile):
+        t = queries[s:s + tile]
+        d2 = sum((t[:, i, None] - keys[None, :, i]) ** 2 for i in range(3))  # (T, N)
+        parts.append(torch.where(key_invalid[None, :], inf, d2).amin(dim=1))
+    return torch.sqrt(torch.cat(parts))
+
+
 def knn_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows of data (N, C) by idx (..., K) -> (..., K, C)."""
     return data[idx]

@@ -2,8 +2,8 @@
 
 Counterpart of roitr_tpu/ops/sinkhorn.py (reference model/modules.py:10-72)
 with a fixed iteration count: the iterations run as one kernel launch on
-the card (kernels/sinkhorn_kernel.py), the plain loop on the CPU.
-Everything is fp32.
+the card (kernels/sinkhorn_kernel.py), the plain loop on the CPU, and so
+does their reverse mode. Everything is fp32.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import warnings
 
 import torch
 
-from roitr_torch.kernels.sinkhorn_kernel import sinkhorn_iterate
+from roitr_torch.kernels.sinkhorn_kernel import sinkhorn
 
 _INF = 1e6
 
@@ -56,11 +56,12 @@ def log_sinkhorn_ot(scores: torch.Tensor, row_masks: torch.Tensor, col_masks: to
     dustbin score) -> log assignment matrix (B, M+1, N+1).
 
     The iterations run as the kernel on the card and as the plain loop on
-    the CPU. The iteration count is fixed: tol > 0 is ignored with a
-    warning, as on the JAX package's kernel path.
+    the CPU; differentiable in scores and alpha (alpha through the padded
+    scores, as in JAX). The iteration count is fixed: tol > 0 is ignored
+    with a warning, as on the JAX package's kernel path.
     """
     if tol > 0.0:
         warnings.warn("sinkhorn_tol > 0 has no effect: the port always runs the fixed "
                       "iteration count", stacklevel=2)
     padded, log_mu, log_nu, norm = sinkhorn_inputs(scores, row_masks, col_masks, alpha)
-    return sinkhorn_iterate(padded, log_mu, log_nu, num_iter) - norm[:, None, None]
+    return sinkhorn(padded, log_mu, log_nu, num_iter) - norm[:, None, None]

@@ -63,6 +63,7 @@ class Matcher:
                           src_feats=t(s_feats), src_count=count(s_cnt), tgt_points=t(t_pts),
                           tgt_normals=t(t_nrm), tgt_feats=t(t_feats), tgt_count=count(t_cnt))
 
+    @torch.no_grad()
     def match(self, src_pcd: np.ndarray, tgt_pcd: np.ndarray,
               src_normals: Optional[np.ndarray] = None,
               tgt_normals: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:

@@ -130,13 +130,15 @@ def params_to_state_dict(
     transformer_architecture: Sequence[str] = ("self", "cross", "self", "cross", "self", "cross"),
     enc_blocks: Sequence[int] = (2, 3, 3, 3),
 ) -> Dict[str, torch.Tensor]:
-    """JAX params (nested dict of arrays) -> port state_dict (CPU tensors)."""
+    """JAX params (nested dict of arrays) -> port state_dict (CPU tensors).
+    Any pytree of the params' structure maps the same way, such as the
+    gradients of `jax.value_and_grad`."""
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, key, kind in _entries(transformer_architecture, enc_blocks):
         node = params
         for p in path:
             node = node[p]
-        value = np.asarray(node[leaf], np.float32)
+        value = np.array(node[leaf], np.float32)  # a writable copy
         if kind == "kernel":
             value = value.T
         sd[key] = torch.from_numpy(np.ascontiguousarray(value))

@@ -1,7 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
-card, at small and odd shapes, plus a small forward and a Matcher call on
-the card. Needs a CUDA card; skips without one (the decision is taken in a
-fixture, never at import). On the card:
+card, at small and odd shapes and at the training shapes, plus a small
+forward, a Matcher call and one train step on the card. Needs a CUDA card;
+skips without one (the decision is taken in a fixture, never at import).
+On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -12,6 +13,15 @@ Tolerances, each against the plain version on the same card and inputs:
 FPS indices exactly; fp32 outputs within 1e-4 of the largest reference
 value (the kernels sum in another order than the library); bf16 outputs
 within one bf16 step at that value; Sinkhorn within 1e-4 on valid entries.
+The backward kernels: fp32 gradients within 1e-4 of the largest reference
+value, bf16 embedding gradients within one bf16 step; Sinkhorn's under a
+cotangent on valid entries, its ds within 1e-4 and its dmu / dnu (the
+marginals' cotangents, summed over every reverse step) within 1e-3 of the
+largest value: against a float64 loop at (128, 65, 65) x 100 the fp32
+plain loop itself is about 1e-4 off there, and so is the kernel
+(`chip_smoke.py` prints both); the geometric embedding's
+backward is given the plain version's own argmax map, whose mismatches
+with the kernel's map are counted apart (near-ties within rounding).
 """
 
 import numpy as np
@@ -20,9 +30,24 @@ import torch
 
 from roitr_torch import kernels
 from roitr_torch.kernels.fps_kernel import fps_pairs, fps_plain
-from roitr_torch.kernels.geo_embedding_kernel import fused_geo_embedding, geo_embedding_plain
-from roitr_torch.kernels.rpe_attention_kernel import fused_rpe_self_attention, rpe_attention_plain
-from roitr_torch.kernels.sinkhorn_kernel import sinkhorn_iterate, sinkhorn_plain
+from roitr_torch.kernels.geo_embedding_kernel import (
+    fused_geo_embedding,
+    geo_embedding_bwd,
+    geo_embedding_bwd_plain,
+    geo_embedding_plain,
+)
+from roitr_torch.kernels.rpe_attention_kernel import (
+    fused_rpe_self_attention,
+    rpe_attention_bwd,
+    rpe_attention_bwd_plain,
+    rpe_attention_plain,
+)
+from roitr_torch.kernels.sinkhorn_kernel import (
+    sinkhorn_bwd,
+    sinkhorn_bwd_plain,
+    sinkhorn_iterate,
+    sinkhorn_plain,
+)
 from roitr_torch.ops.sinkhorn import sinkhorn_inputs
 
 pytestmark = pytest.mark.cuda
@@ -126,6 +151,70 @@ def test_sinkhorn_kernel(dev, p, m, n, iters):
     assert float((got - ref)[valid].abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("p,m,n,iters", [(5, 11, 9, 20), (128, 64, 64, 100), (3, 1, 1, 10)])
+def test_sinkhorn_bwd_kernel(dev, p, m, n, iters):
+    g = torch.Generator().manual_seed(p)
+    scores = torch.randn(p, m, n, generator=g).to(dev)
+    rm = (torch.rand(p, m, generator=g) > 0.2).to(dev)
+    cm = (torch.rand(p, n, generator=g) > 0.2).to(dev)
+    rm[:, 0] = cm[:, 0] = True
+    rm[-1] = False
+    padded, mu, nu, _ = sinkhorn_inputs(scores, rm, cm, torch.tensor(1.3, device=dev))
+    cot = torch.randn(padded.shape, generator=g).to(dev) * (padded > -1e5)
+    ref = sinkhorn_bwd_plain(padded, mu, nu, cot, iters)
+    got = _launched("sinkhorn_bwd", lambda: sinkhorn_bwd(padded, mu, nu, cot, iters))
+    for name, a, b in zip(("ds", "dmu", "dnu"), got, ref):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, frac=1e-4 if name == "ds" else 1e-3)
+
+
+@pytest.mark.parametrize("n,d,h,dtype,valid", [
+    (24, 32, 4, torch.float32, 20),
+    (21, 32, 4, torch.bfloat16, 21),
+    (100, 64, 2, torch.bfloat16, 37),
+    (40, 64, 8, torch.float32, 33),
+    (20, 64, 16, torch.float32, 18),
+    (9, 32, 4, torch.float32, 1),
+    (512, 256, 4, torch.bfloat16, 480),   # the training shape
+])
+def test_rpe_attention_bwd_kernel(dev, n, d, h, dtype, valid):
+    g = torch.Generator().manual_seed(n + 1)
+    q2, k2, v2, ghid = (torch.randn(n, d, generator=g).to(dev) for _ in range(4))
+    qwp = (torch.randn(n, h, d, generator=g) * 0.3).to(dev)
+    gae = torch.randn(n, h, d, generator=g).to(dev)
+    embed = torch.randn(n, n, d, generator=g).to(dev, dtype)
+    mask = (torch.arange(n) < valid).float().to(dev)
+    args = (q2, k2, v2, qwp, embed, mask, ghid, gae)
+    ref = rpe_attention_bwd_plain(*args)
+    got = _launched("rpe_attention_bwd", lambda: rpe_attention_bwd(*args))
+    for name, a, b in zip(("dq", "dk", "dv", "dqwp", "demb"), got, ref):
+        assert a.dtype == b.dtype, name
+        _close(a, b, frac=1 / 128 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("r,k,hidden,gdtype", [
+    (300, 3, 64, torch.float32), (4096, 3, 256, torch.bfloat16), (77, 1, 32, torch.float32),
+    (130, 2, 256, torch.bfloat16), (262144, 3, 256, torch.bfloat16)])
+def test_geo_embedding_bwd_kernel(dev, r, k, hidden, gdtype):
+    g = torch.Generator().manual_seed(r + 7)
+    d = (torch.rand(r, generator=g) * 20).to(dev)
+    a = (torch.rand(r, k, generator=g) * 12).to(dev)
+    a[::16] = a[::16, :1]  # tie rows: every k equal, the first must win
+    wd, wa = ((torch.randn(hidden, hidden, generator=g) / 8).to(dev) for _ in range(2))
+    bd, ba = ((torch.randn(hidden, generator=g) / 8).to(dev) for _ in range(2))
+    cot = torch.randn(r, hidden, generator=g).to(dev, gdtype)
+    out, amap = _launched("geo_embedding", lambda: fused_geo_embedding(
+        d, a, wd, bd, wa, ba, out_dtype=gdtype, with_argmax=True))
+    ref_out, ref_map = geo_embedding_plain(d, a, wd, bd, wa, ba, gdtype, with_argmax=True)
+    _close(out, ref_out, frac=1 / 128 if gdtype == torch.bfloat16 else 1e-4)
+    assert float((amap != ref_map).float().mean()) <= 1e-3
+    assert (amap[::16] == 0).all()
+    ref = geo_embedding_bwd_plain(d, a, ref_map, cot, hidden)
+    got = _launched("geo_embedding_bwd", lambda: geo_embedding_bwd(d, a, ref_map, cot, hidden))
+    for a_, b_ in zip(got, ref):
+        _close(a_, b_)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     before = dict(kernels.launch_counts)
     pts = torch.rand(2, 64, 3, device=dev)
@@ -142,6 +231,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     big = torch.zeros(1, 300, 300, device=dev)  # 360 KB: more than a block's shared memory
     with pytest.raises(RuntimeError, match="sinkhorn kernel refused"):
         sinkhorn_iterate(big, torch.zeros(1, 300, device=dev), torch.zeros(1, 300, device=dev), 1)
+    with pytest.raises(RuntimeError, match="sinkhorn_bwd kernel refused"):  # 100 x (65+65) floats
+        sinkhorn_bwd(torch.zeros(1, 65, 65, device=dev), torch.zeros(1, 65, device=dev),
+                     torch.zeros(1, 65, device=dev), torch.zeros(1, 65, 65, device=dev), 1000)
+    with pytest.raises(RuntimeError, match="rpe_attention_bwd kernel refused"):
+        rpe_attention_bwd(x, x, x, torch.rand(16, 3, 32, device=dev),
+                          torch.rand(16, 16, 32, device=dev), torch.ones(16, device=dev), x,
+                          torch.rand(16, 3, 32, device=dev))
+    with pytest.raises(TypeError, match="dtype"):
+        geo_embedding_bwd(torch.rand(8, device=dev), torch.rand(8, 3, device=dev),
+                          torch.zeros(8, 32, dtype=torch.int8, device=dev),
+                          torch.rand(8, 32, device=dev).half(), 32)
     assert kernels.launch_counts == before
     # a refusal leaves no error behind for the next launch
     small = torch.zeros(1, 5, 5, device=dev)
@@ -166,17 +266,20 @@ def test_forward_on_card_matches_cpu(dev):
     cfg = _tiny_cfg()
     arr = pair_arrays(5, bucket=512, n_valid=480, m_valid=400)
     kernels.reset_launch_counts()
-    og = RoITr(cfg, device=dev, seed=0)(torch_pair(arr, dev))
-    torch.cuda.synchronize()
-    assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
-    oc = RoITr(cfg, device="cpu", seed=0)(torch_pair(arr))
+    with torch.no_grad():
+        og = RoITr(cfg, device=dev, seed=0)(torch_pair(arr, dev))
+        torch.cuda.synchronize()
+        assert all(kernels.launch_counts[k] > 0 for k in kernels.FORWARD_KERNELS), \
+            kernels.launch_counts
+        oc = RoITr(cfg, device="cpu", seed=0)(torch_pair(arr))
     og = {k: v.cpu() for k, v in og.items()}
     for key in ("src_nodes", "tgt_nodes", "src_node_count", "tgt_node_count"):
         assert torch.equal(og[key], oc[key]), key
     cos = torch.nn.functional.cosine_similarity
     for side, count in (("src", 480), ("tgt", 400)):
         nc = int(oc[f"{side}_node_count"])
-        assert float(cos(og[f"{side}_node_feats"][:nc], oc[f"{side}_node_feats"][:nc]).min()) >= 0.999
+        node_cos = cos(og[f"{side}_node_feats"][:nc], oc[f"{side}_node_feats"][:nc])
+        assert float(node_cos.min()) >= 0.999
         pc = cos(og[f"{side}_point_feats"][:count], oc[f"{side}_point_feats"][:count])
         assert float((pc >= 0.999).float().mean()) >= 0.99
     for k, v in og.items():
@@ -195,8 +298,29 @@ def test_matcher_on_card(dev):
     arr = make_pair_arrays(np.random.RandomState(2), 700, 700, 450)
     kernels.reset_launch_counts()
     out = matcher.match(arr["src_points"], arr["tgt_points"][:450])
-    assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
+    assert all(kernels.launch_counts[k] > 0 for k in kernels.FORWARD_KERNELS), \
+        kernels.launch_counts
     assert out["src_point_desc"].shape == (512, 256)  # capped at points_limit
     assert out["tgt_point_desc"].shape == (450, 256)
     for v in out.values():
         assert np.isfinite(v).all()
+
+
+def test_train_step_on_card(dev):
+    """One train step on the card: every kernel, the three backward kernels
+    included, launches; loss and gradients finite; the parameters move."""
+    from torch_parity import pair_arrays, torch_pair
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.parallel.train_step import make_optimizer, train_step
+
+    cfg = _tiny_cfg().replace(num_gt_coarse_corr=32)
+    model = RoITr(cfg, device=dev, seed=0)
+    opt = make_optimizer(cfg, model, steps_per_epoch=1)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kernels.reset_launch_counts()
+    metrics = train_step(model, opt, torch_pair(pair_arrays(3, 512, 480, 400), dev),
+                         torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
+    assert metrics["grads_finite"] == 1.0 and np.isfinite(metrics["loss"])
+    assert any(not torch.equal(v, before[k]) for k, v in model.state_dict().items())

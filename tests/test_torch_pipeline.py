@@ -34,7 +34,8 @@ BUCKET = dict(bucket=512, n_valid=480, m_valid=400)
 def _run_both(storage: str, seed: int = 5):
     tcfg, model, jcfg, params = port_and_params(0, geo_embedding_storage=storage)
     arr = pair_arrays(seed, **BUCKET)
-    got = {k: v.numpy() for k, v in model(torch_pair(arr)).items()}
+    with torch.no_grad():
+        got = {k: v.numpy() for k, v in model(torch_pair(arr)).items()}
     want = JaxRoITr(jcfg).apply({"params": params}, jax_pair(arr), train=False, with_gt=False)
     return got, {k: np.asarray(v) for k, v in want.items()}
 
@@ -123,7 +124,6 @@ def test_node_descriptors_rotation_invariant():
     descriptors unchanged: PPFs are the only geometric input."""
     tcfg, model, _, _ = port_and_params(0)
     arr = pair_arrays(7, **BUCKET)
-    out0 = model(torch_pair(arr))
     rng = np.random.RandomState(3)
     q, _ = np.linalg.qr(rng.randn(3, 3))
     if np.linalg.det(q) < 0:
@@ -132,24 +132,34 @@ def test_node_descriptors_rotation_invariant():
     rot = dict(arr)
     rot["src_points"] = rot["src_raw_points"] = arr["src_points"] @ q.T
     rot["src_normals"] = arr["src_normals"] @ q.T
-    out1 = model(torch_pair(rot))
+    with torch.no_grad():
+        out0 = model(torch_pair(arr))
+        out1 = model(torch_pair(rot))
     n = int(out0["src_node_count"])
     cos = (out0["src_node_feats"][:n] * out1["src_node_feats"][:n]).sum(-1)
     assert float(cos.min()) > 0.999, float(cos.min())
 
 
-def test_later_slices_raise():
+@pytest.mark.parametrize("option", [dict(compute_dtype="bfloat16"), dict(remat_local=True),
+                                    dict(packed_batch=True)])
+def test_later_slices_raise(option):
+    """What the port has no path for yet is refused, not followed silently:
+    bf16 compute, rematerialised local attention and packed batches, both
+    as options and as a packed pair."""
+    from roitr_torch.config import Config
+    from roitr_torch.models.roitr import RoITr
+
+    with pytest.raises(NotImplementedError, match="later slice|not ported"):
+        RoITr(Config(benchmark="3DMatch", **option), device="cpu")
     tcfg, model, _, _ = port_and_params(0)
     pair = torch_pair(pair_arrays(1))
-    for kw in (dict(with_gt=True), dict(train=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            model(pair, **kw)
     batched = pair._replace(src_count=torch.tensor([224]), tgt_count=torch.tensor([192]))
     with pytest.raises(NotImplementedError, match="later slice"):
         model(batched)
 
 
-@pytest.mark.parametrize("option", [dict(knn_method="approx"), dict(sinkhorn_backend="xla")])
+@pytest.mark.parametrize("option", [dict(knn_method="approx"), dict(sinkhorn_backend="xla"),
+                                    dict(compute_dtype="bfloat16"), dict(remat_local=True)])
 def test_unported_options_raise(option):
     """Options that would take another path than the slice's kernels are
     refused when the model is built, not followed silently."""

@@ -48,7 +48,7 @@ def torch_pair(arr, device="cpu"):
         src_normals=t(arr["src_normals"]), src_feats=t(arr["src_feats"]),
         src_count=c(arr["src_count"]), tgt_points=t(arr["tgt_points"]),
         tgt_normals=t(arr["tgt_normals"]), tgt_feats=t(arr["tgt_feats"]),
-        tgt_count=c(arr["tgt_count"]))
+        tgt_count=c(arr["tgt_count"]), rot=t(arr["rot"]), trans=t(arr["trans"]))
 
 
 def jax_pair(arr):
