@@ -5,6 +5,8 @@
 Phases, each of which exits non-zero on failure:
   1. device    name, count and power limit of the card (fails without one)
   2. build     nvcc of every kernel in roitr_torch/csrc/, with ptxas's report
+               (the tensor-core geometric embedding's registers, spills and
+               resident blocks an SM apart)
   3. kernels   each kernel, forward and backward, against its plain PyTorch
                version on the card at the 32768-point bucket's shapes (FPS
                exact, the others within stated tolerances), timed with CUDA
@@ -40,9 +42,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
+# and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -64,9 +68,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOP_PER_S):
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM's rate
+    and the operations over `peak` FLOP/s."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -96,6 +102,27 @@ def phase_build():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # the tensor-core geometric embedding: registers, spills, blocks an SM
+    import ctypes
+
+    from roitr_torch.kernels.build import function
+
+    current = ""
+    for line in reports["geo_embedding"].splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+        elif "geo_embedding_kernel" in current and ("Used" in line or "spill" in line):
+            with_map = "ILb1E" in current
+            print(f"[build] geo_embedding_kernel<{'map' if with_map else 'no map'}>: "
+                  f"{line.split(':', 1)[-1].strip()}")
+    fn = function("geo_embedding", "roitr_geo_embedding_blocks_per_sm",
+                  [ctypes.c_int, ctypes.c_void_p])
+    for with_map in (1, 0):
+        blocks = ctypes.c_int(0)
+        if fn(with_map, ctypes.byref(blocks)) != 0:
+            fail("cudaOccupancyMaxActiveBlocksPerMultiprocessor failed for geo_embedding_kernel")
+        print(f"[build] geo_embedding_kernel<{'map' if with_map else 'no map'}>: "
+              f"{blocks.value} resident block(s) of 256 threads an SM")
 
 
 def phase_kernels(rng):
@@ -107,6 +134,7 @@ def phase_kernels(rng):
         geo_embedding_bwd,
         geo_embedding_bwd_plain,
         geo_embedding_plain,
+        geo_embedding_split_plain,
     )
     from roitr_torch.kernels.rpe_attention_kernel import (
         fused_rpe_self_attention,
@@ -175,16 +203,28 @@ def phase_kernels(rng):
               f"fp32 max abs err {err32:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g}); "
               f"bf16 max abs err {err:.3g} (tol one bf16 ulp at max|ref| = {top / 128:.3g})",
               flush=True)
+        emu = geo_embedding_split_plain(d_idx, a_idx, *w, out_dtype=torch.float32)
+        print(f"[kernels] geo_embedding fp32: kernel vs its split-bf16 emulation max abs err "
+              f"{float((got32 - emu).abs().max()):.3g}, emulation vs plain "
+              f"{float((emu - ref32).abs().max()):.3g}", flush=True)
+        del emu
         if not err32 <= 1e-4 * top or not err <= top / 128:
             fail("geo_embedding kernel outside tolerance")
         ms = cuda_ms(lambda: fused_geo_embedding(d_idx, a_idx, *w, out_dtype=torch.bfloat16), 5)
         plain_ms = cuda_ms(lambda: geo_embedding_plain(d_idx, a_idx, *w,
                                                        out_dtype=torch.bfloat16), 3)
     r, k = a_idx.shape
-    rows["geo_embedding"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bytes=r * 4 + r * k * 4 + 4 * (2 * 256 * 256 + 2 * 256) + r * 256 * 2,
-        flops=2.0 * r * (1 + k) * 256 * 256)
+    # the kernel takes each product as three bf16 products on the tensor cores
+    byt = r * 4 + r * k * 4 + 4 * (2 * 256 * 256 + 2 * 256) + r * 256 * 2
+    flops = 2.0 * r * (1 + k) * 256 * 256
+    fp32_ms, _ = bound(byt, flops)
+    tc_ms, tc_by = bound(byt, 3 * flops, BF16_TC_FLOP_PER_S)
+    print(f"[kernels] geo_embedding bound: {flops:.3g} FLOP, {fp32_ms:.3f} ms on the fp32 CUDA "
+          f"cores; three bf16 products {3 * flops:.3g} FLOP, {tc_ms:.3f} ms on the tensor cores "
+          f"({tc_by}); bytes {byt / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel {ms:.3f} ms",
+          flush=True)
+    rows["geo_embedding"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=byt,
+                                 flops=3 * flops, peak=BF16_TC_FLOP_PER_S)
 
     # ---- geometric embedding backward: the kernel's own argmax map and a
     # bf16 cotangent; kernel and plain version are given the same map
@@ -585,7 +625,7 @@ def main() -> int:
 
     kernels = []
     for name, row in rows.items():
-        bound_ms, bound_by = bound(row["bytes"], row["flops"])
+        bound_ms, bound_by = bound(row["bytes"], row["flops"], row.get("peak", FP32_FLOP_PER_S))
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -11,18 +11,43 @@
 // wrapper passes the even and odd rows of each weight as separate arrays).
 //
 // What bounds it: operations. At the 32768 bucket R = 512^2 = 262144 rows,
-// H = 256, k = 3: (1 + k) * R * H * H multiply-adds, 1.4e11 FLOP a cloud,
-// against 134 MB of bf16 output. Design: a tiled fp32 product whose A
-// operand (the sin/cos basis) is generated in shared memory from the
-// indices and never reaches device memory. A block owns 64 rows x 128
-// columns; for each of the 1 + k phases it streams the basis and the
-// weight rows through shared memory in 16-frequency slices, each thread
-// holding a 4 x 8 tile of sums in registers, then folds the phase into
-// the distance part or the running max over k. The output is written once,
-// in the storage dtype. fp32 on the CUDA cores, right before fast: the
-// tensor-core (wgmma) form is later work. Under differentiation it also
-// writes the int8 (R, H) map of the winning k (`_kernel`'s amax output),
-// with the strict > of the TPU kernel: ties keep the first k.
+// H = 256, k = 3: (1 + k) x R x H x H multiply-adds, 1.4e11 FLOP a cloud,
+// against 134 MB of bf16 output (0.041 ms at 3.35 TB/s). The products run
+// on the bf16 tensor cores (mma.sync m16n8k16, fp32 accumulators), each
+// fp32 operand x split into hi = bf16(x) and lo = bf16(x - hi) and the
+// product taken as lo.hi + hi.lo + hi.hi (lo.lo dropped): three products,
+// 4.2e11 FLOP, 0.425 ms at the H100's 989 TFLOP/s dense bf16. Why three:
+// against float64 at R 8192, H 256, k 3 (weights U(+-1/16)), the error over
+// the largest |ref| and the share of the argmax map that differs are
+// 7.7e-07 / 1.4e-06 for fp32, 5.0e-06 / 4.8e-06 for the three split
+// products, 3.2e-04 / 5.1e-04 for TF32 and 2.3e-03 / 3.1e-03 for one bf16
+// product; the check is 1e-4 and 1e-3, which only the first two pass
+// (tests/test_torch_geo_split.py emulates the split on the CPU).
+//
+// Design. A block owns 64 rows x 256 columns (all of them at H 256, so each
+// sin/cos is computed once), 8 warps as 2 x 4, each warp 32 x 64 (2 x 8
+// m16n8 tiles). The K dimension runs in slices of 16 frequencies: 16 sin
+// then 16 cos columns, two k16 steps. A, the sin/cos basis, is generated
+// from the indices into shared memory as hi/lo bf16 (sincosf, not the
+// fast intrinsics: the arguments reach tens of radians, where __sincosf
+// loses the accuracy the 1e-4 check needs) and never reaches device
+// memory. B, the weights, is split into hi/lo once per launch by
+// `geo_embedding_split_weights` into a slice-major scratch and streamed
+// through a two-stage cp.async ring while the next slice's basis is
+// generated. Both operands reach the tensor cores by ldmatrix, from rows
+// padded to 80 bytes (eight rows on distinct banks). The k angle phases run
+// first, phase 1 straight into the running max and each later one into a
+// second array folded in with a strict > (ties keep the first k, as
+// torch.argmax does; a padded neighbour repeats the row point, so its
+// phase accumulates the same values in the same order and ties exactly);
+// the distance phase then accumulates on top of the max. Two arrays of 64
+// fp32 a thread. The epilogue adds the biases, stages the tile in shared
+// memory in the storage dtype and writes each row once with 16-byte
+// stores; under differentiation it also writes the int8 (R, H) map of the
+// winning k the same way.
+//
+// Later work: wgmma with A from registers and B by TMA, and a persistent
+// grid whose next tile's basis overlaps this tile's epilogue.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -30,134 +55,314 @@
 
 namespace {
 
-constexpr int kTM = 64;    // rows of a block
-constexpr int kTN = 128;   // columns of a block
-constexpr int kTJ = 16;    // frequencies a slice
 constexpr int kThreads = 256;
-constexpr int kRM = 4;     // rows a thread
-constexpr int kRN = 8;     // columns a thread
+constexpr int kBM = 64;          // rows of a block
+constexpr int kBN = 256;         // columns of a block
+constexpr int kWM = 32;          // rows of a warp (warps 2 x 4)
+constexpr int kWN = 64;          // columns of a warp
+constexpr int kMT = kWM / 16;    // m16 tiles of a warp
+constexpr int kNT = kWN / 8;     // n8 tiles of a warp
+constexpr int kFreq = 16;        // frequencies a K-slice
+constexpr int kBK = 2 * kFreq;   // K columns a slice: kFreq sin, then kFreq cos
+constexpr int kLd = kBK + 8;     // shared row stride in bf16: 80 bytes
+constexpr int kAElems = kBM * kLd;
+constexpr int kBElems = kBN * kLd;
+constexpr int kStageElems = 2 * kAElems + 2 * kBElems;  // A hi, A lo, B hi, B lo
+constexpr int kStages = 2;
+constexpr int kOutLdF = kBN + 4;  // epilogue tile strides (16-byte rows)
+constexpr int kOutLdH = kBN + 8;
+constexpr int kMapLd = kBN + 16;
+constexpr size_t kPipeBytes = (size_t)kStages * kStageElems * 2;
+constexpr size_t kEpiBytes = (size_t)kBM * kOutLdF * 4 + (size_t)kBM * kMapLd;
+constexpr size_t kSmemBytes = kPipeBytes > kEpiBytes ? kPipeBytes : kEpiBytes;
+
+__host__ __device__ inline int slices_of(int hidden) { return (hidden / 2 + kFreq - 1) / kFreq; }
+__host__ __device__ inline int ncols_of(int hidden) { return (hidden + kBN - 1) / kBN * kBN; }
+
+// The split weights: wsplit[t][s][h][n][c] bf16, t 0 the distance weight and
+// 1 the angle weight, s the K-slice, h 0 hi and 1 lo, n the output column
+// (zeros past hidden), c < 16 the even (sin) row 2 (16 s + c) of W and
+// c >= 16 the odd (cos) row 2 (16 s + c - 16) + 1 (zeros past hidden / 2).
+__global__ void geo_embedding_split_weights(const float* __restrict__ wde,
+                                            const float* __restrict__ wdo,
+                                            const float* __restrict__ wae,
+                                            const float* __restrict__ wao,
+                                            __nv_bfloat16* __restrict__ wsplit, int hidden) {
+  const int slices = slices_of(hidden);
+  const int ncols = ncols_of(hidden);
+  const int half = hidden / 2;
+  const size_t plane = (size_t)ncols * kBK;
+  const size_t total = (size_t)2 * slices * plane;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(e % kBK);
+    const int n = (int)(e / kBK % ncols);
+    const int ts = (int)(e / plane);  // t * slices + s
+    const int s = ts % slices;
+    const int j = s * kFreq + c % kFreq;
+    float w = 0.f;
+    if (n < hidden && j < half) {
+      const float* src = ts < slices ? (c < kFreq ? wde : wdo) : (c < kFreq ? wae : wao);
+      w = src[(size_t)j * hidden + n];
+    }
+    const __nv_bfloat16 hi = __float2bfloat16_rn(w);
+    __nv_bfloat16* dst = wsplit + (size_t)ts * 2 * plane + e % plane;
+    dst[0] = hi;
+    dst[plane] = __float2bfloat16_rn(w - __bfloat162float(hi));
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a . b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (v0, v1) -> packed bf16 pairs hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// acc += A . B over one K-slice of a stage (byte addresses of its A hi, A lo,
+// B hi, B lo tiles in shared memory): two k16 steps of three split
+// products. Pairs of n8 tiles at or past the last column are skipped.
+__device__ __forceinline__ void mma_slice(float (&acc)[kMT][kNT][4], uint32_t a_hi,
+                                          uint32_t a_lo, uint32_t b_hi, uint32_t b_lo,
+                                          int lane, int warp_m, int warp_n, int ncol_left) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t ah[kMT][4], al[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int row = warp_m * kWM + mt * 16 + lane % 16;
+      const uint32_t off = (uint32_t)(row * kLd + ks * 16 + (lane / 16) * 8) * 2;
+      ldsm_x4(a_hi + off, ah[mt]);
+      ldsm_x4(a_lo + off, al[mt]);
+    }
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      if (warp_n * kWN + np * 16 >= ncol_left) continue;  // warp-uniform
+      const int n = warp_n * kWN + np * 16 + lane % 8 + (lane / 16) * 8;
+      const uint32_t off = (uint32_t)(n * kLd + ks * 16 + ((lane / 8) % 2) * 8) * 2;
+      uint32_t bh[4], bl[4];
+      ldsm_x4(b_hi + off, bh);
+      ldsm_x4(b_lo + off, bl);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float (&c)[4] = acc[mt][2 * np + q];
+          mma_bf16(c, al[mt], bh[2 * q], bh[2 * q + 1]);
+          mma_bf16(c, ah[mt], bl[2 * q], bl[2 * q + 1]);
+          mma_bf16(c, ah[mt], bh[2 * q], bh[2 * q + 1]);
+        }
+    }
+  }
+}
 
 template <bool kArgmax>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ a_idx,
-                     const float* __restrict__ div, const float* __restrict__ wde,
-                     const float* __restrict__ wdo, const float* __restrict__ bd,
-                     const float* __restrict__ wae, const float* __restrict__ wao,
-                     const float* __restrict__ ba, void* __restrict__ out,
-                     int8_t* __restrict__ amax_map, int r_total, int k_total, int hidden,
-                     int out_bf16) {
-  __shared__ float s_sin[kTJ][kTM];
-  __shared__ float s_cos[kTJ][kTM];
-  __shared__ float s_we[kTJ][kTN];
-  __shared__ float s_wo[kTJ][kTN];
+                     const float* __restrict__ div, const __nv_bfloat16* __restrict__ wsplit,
+                     const float* __restrict__ bd, const float* __restrict__ ba,
+                     void* __restrict__ out, int8_t* __restrict__ amax_map, int r_total,
+                     int k_total, int hidden, int out_bf16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const sm = reinterpret_cast<__nv_bfloat16*>(smem);
 
   const int tid = threadIdx.x;
-  const int tx = tid % (kTN / kRN);  // 16 column groups
-  const int ty = tid / (kTN / kRN);  // 16 row groups
-  const int row0 = blockIdx.x * kTM;
-  const int col0 = blockIdx.y * kTN;
+  const int lane = tid % 32;
+  const int warp_m = tid / 32 / 4;
+  const int warp_n = tid / 32 % 4;
+  const int row0 = blockIdx.x * kBM;
+  const int col0 = blockIdx.y * kBN;
   const int half = hidden / 2;
+  const int slices = slices_of(hidden);
+  const size_t plane = (size_t)ncols_of(hidden) * kBK;
+  const int ncol_left = hidden - col0;
+  // steps: the k angle phases, then the distance phase, each `slices` long
+  const int steps = (k_total + 1) * slices;
 
-  float dsum[kRM][kRN];
-  float amax[kRM][kRN];
-  // the winning k of each (row, column), four int8 lanes a register
-  uint32_t arg[kRM][kRN / 4];
+  // B of step `it` into stage `st`: hi and lo, kBN rows of 4 16-byte chunks
+  auto load_b = [&](int it, int st) {
+    const int q = it / slices;
+    const int ts = (q == k_total ? 0 : slices) + it % slices;
+    const __nv_bfloat16* src = wsplit + (size_t)ts * 2 * plane + (size_t)col0 * kBK;
+    __nv_bfloat16* dst = sm + st * kStageElems + 2 * kAElems;
 #pragma unroll
-  for (int i = 0; i < kRM; ++i)
-#pragma unroll
-    for (int q = 0; q < kRN / 4; ++q) arg[i][q] = 0u;
+    for (int e = tid; e < 2 * kBN * 4; e += kThreads) {
+      const int h = e / (kBN * 4);
+      const int n = e / 4 % kBN;
+      const int c = e % 4;
+      cp_async16(smem_u32(dst + h * kBElems + n * kLd + c * 8),
+                 src + h * plane + (size_t)n * kBK + c * 8);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
 
-  for (int phase = 0; phase <= k_total; ++phase) {
-    const float* we = phase == 0 ? wde : wae;
-    const float* wo = phase == 0 ? wdo : wao;
-    float acc[kRM][kRN];
+  // A of step `it` into stage `st`: this thread's row and 4 frequencies
+  const int gr = tid / 4;
+  const int gf = tid % 4 * 4;
+  const int grow = row0 + gr;
+  auto gen_a = [&](int it, int st) {
+    const int q = it / slices;
+    const int j0 = it % slices * kFreq + gf;
+    float x = 0.f;
+    if (grow < r_total) x = q == k_total ? d_idx[grow] : a_idx[(size_t)grow * k_total + q];
+    float sv[4], cv[4];
 #pragma unroll
-    for (int i = 0; i < kRM; ++i)
-#pragma unroll
-      for (int j = 0; j < kRN; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      sv[i] = cv[i] = 0.f;
+      if (grow < r_total && j0 + i < half) sincosf(x * div[j0 + i], &sv[i], &cv[i]);
+    }
+    uint2 sh, sl, ch, cl;
+    split2(sv[0], sv[1], sh.x, sl.x);
+    split2(sv[2], sv[3], sh.y, sl.y);
+    split2(cv[0], cv[1], ch.x, cl.x);
+    split2(cv[2], cv[3], ch.y, cl.y);
+    __nv_bfloat16* a = sm + st * kStageElems + gr * kLd + gf;
+    *reinterpret_cast<uint2*>(a) = sh;
+    *reinterpret_cast<uint2*>(a + kFreq) = ch;
+    *reinterpret_cast<uint2*>(a + kAElems) = sl;
+    *reinterpret_cast<uint2*>(a + kAElems + kFreq) = cl;
+  };
 
-    for (int j0 = 0; j0 < half; j0 += kTJ) {
-      // basis slice: kTJ frequencies x kTM rows
-      for (int e = tid; e < kTJ * kTM; e += kThreads) {
-        const int jj = e / kTM;
-        const int rr = e % kTM;
-        const int row = row0 + rr;
-        const int j = j0 + jj;
-        float s = 0.f, c = 0.f;
-        if (row < r_total && j < half) {
-          const float x = phase == 0 ? d_idx[row] : a_idx[(size_t)row * k_total + phase - 1];
-          sincosf(x * div[j], &s, &c);
-        }
-        s_sin[jj][rr] = s;
-        s_cos[jj][rr] = c;
-      }
-      // weight slice: kTJ even and odd rows x kTN columns
-      for (int e = tid; e < kTJ * kTN; e += kThreads) {
-        const int jj = e / kTN;
-        const int cc = e % kTN;
-        const int j = j0 + jj;
-        const int col = col0 + cc;
-        const bool ok = j < half && col < hidden;
-        s_we[jj][cc] = ok ? we[(size_t)j * hidden + col] : 0.f;
-        s_wo[jj][cc] = ok ? wo[(size_t)j * hidden + col] : 0.f;
-      }
-      __syncthreads();
+  float mx[kMT][kNT][4];   // running max over k, then + the distance part
+  float acc[kMT][kNT][4];  // angle phases 2..k
+  uint32_t arg[kMT][kNT];  // winning k of mx's four entries, one byte each
 #pragma unroll
-      for (int jj = 0; jj < kTJ; ++jj) {
-        float sv[kRM], cv[kRM], ev[kRN], ov[kRN];
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int i = 0; i < kRM; ++i) {
-          sv[i] = s_sin[jj][ty * kRM + i];
-          cv[i] = s_cos[jj][ty * kRM + i];
-        }
+    for (int nt = 0; nt < kNT; ++nt) {
+      arg[mt][nt] = 0u;
 #pragma unroll
-        for (int q = 0; q < kRN; ++q) {
-          ev[q] = s_we[jj][tx * kRN + q];
-          ov[q] = s_wo[jj][tx * kRN + q];
-        }
-#pragma unroll
-        for (int i = 0; i < kRM; ++i)
-#pragma unroll
-          for (int q = 0; q < kRN; ++q)
-            acc[i][q] = fmaf(cv[i], ov[q], fmaf(sv[i], ev[q], acc[i][q]));
-      }
-      __syncthreads();
+      for (int i = 0; i < 4; ++i) mx[mt][nt][i] = acc[mt][nt][i] = 0.f;
     }
 
+  load_b(0, 0);
+  gen_a(0, 0);
+  for (int it = 0; it < steps; ++it) {
+    const int st = it & 1;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // step it's A and B are in; every warp is done with it - 1
+    if (it + 1 < steps) {
+      load_b(it + 1, st ^ 1);
+      gen_a(it + 1, st ^ 1);
+    }
+    const int q = it / slices;
+    const uint32_t a_hi = smem_u32(sm + st * kStageElems);
+    const uint32_t a_lo = a_hi + kAElems * 2;
+    const uint32_t b_hi = a_hi + 4 * kAElems;
+    const uint32_t b_lo = b_hi + kBElems * 2;
+    if (q == 0 || q == k_total) {
+      mma_slice(mx, a_hi, a_lo, b_hi, b_lo, lane, warp_m, warp_n, ncol_left);
+    } else {
+      mma_slice(acc, a_hi, a_lo, b_hi, b_lo, lane, warp_m, warp_n, ncol_left);
+      if (it % slices == slices - 1) {  // fold angle phase q into the max
 #pragma unroll
-    for (int i = 0; i < kRM; ++i)
+        for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int q = 0; q < kRN; ++q) {
-        if (phase == 0) {
-          dsum[i][q] = acc[i][q];
-        } else if (phase == 1) {
-          amax[i][q] = acc[i][q];
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (kArgmax && acc[mt][nt][i] > mx[mt][nt][i])
+                arg[mt][nt] = (arg[mt][nt] & ~(0xFFu << (8 * i))) | ((uint32_t)q << (8 * i));
+              mx[mt][nt][i] = fmaxf(mx[mt][nt][i], acc[mt][nt][i]);
+              acc[mt][nt][i] = 0.f;
+            }
+      }
+    }
+  }
+
+  // epilogue: the tile (+ biases) in the storage dtype, and the map, through
+  // shared memory, then 16-byte row stores
+  __syncthreads();  // every warp is done reading the last stage
+  float* const tile_f = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* const tile_h = reinterpret_cast<__nv_bfloat16*>(smem);
+  int8_t* const tile_m = reinterpret_cast<int8_t*>(smem + (size_t)kBM * kOutLdF * 4);
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int cl = warp_n * kWN + nt * 8 + lane % 4 * 2;
+    const int c = col0 + cl;
+    const float b0 = c < hidden ? bd[c] + ba[c] : 0.f;
+    const float b1 = c + 1 < hidden ? bd[c + 1] + ba[c + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = warp_m * kWM + mt * 16 + lane / 4 + 8 * h;
+        const float v0 = mx[mt][nt][2 * h] + b0;
+        const float v1 = mx[mt][nt][2 * h + 1] + b1;
+        if (out_bf16) {
+          *reinterpret_cast<__nv_bfloat162*>(tile_h + rl * kOutLdH + cl) =
+              __floats2bfloat162_rn(v0, v1);
         } else {
-          if (kArgmax && acc[i][q] > amax[i][q]) {
-            const int sh = 8 * (q % 4);
-            arg[i][q / 4] = (arg[i][q / 4] & ~(0xFFu << sh)) | ((uint32_t)(phase - 1) << sh);
-          }
-          amax[i][q] = fmaxf(amax[i][q], acc[i][q]);
+          *reinterpret_cast<float2*>(tile_f + rl * kOutLdF + cl) = make_float2(v0, v1);
+        }
+        if (kArgmax) {
+          tile_m[rl * kMapLd + cl] = (int8_t)((arg[mt][nt] >> (16 * h)) & 0xFFu);
+          tile_m[rl * kMapLd + cl + 1] = (int8_t)((arg[mt][nt] >> (16 * h + 8)) & 0xFFu);
         }
       }
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int row = row0 + ty * kRM + i;
-    if (row >= r_total) continue;
-#pragma unroll
-    for (int q = 0; q < kRN; ++q) {
-      const int col = col0 + tx * kRN + q;
-      if (col >= hidden) continue;
-      const float v = dsum[i][q] + amax[i][q] + bd[col] + ba[col];
-      const size_t o = (size_t)row * hidden + col;
-      if (out_bf16) {
-        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+  const int rows = min(kBM, r_total - row0);
+  const int cols = min(kBN, ncol_left);
+  const int esize = out_bf16 ? 2 : 4;
+  const bool out_vec = (size_t)hidden * esize % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const int per = 16 / esize;  // elements a 16-byte chunk
+  for (int e = tid; e < kBM * (kBN / per); e += kThreads) {
+    const int rl = e / (kBN / per);
+    const int cl = e % (kBN / per) * per;
+    if (rl >= rows || cl >= cols) continue;
+    const size_t o = (size_t)(row0 + rl) * hidden + col0 + cl;
+    const void* src = out_bf16 ? (const void*)(tile_h + rl * kOutLdH + cl)
+                               : (const void*)(tile_f + rl * kOutLdF + cl);
+    char* dst = static_cast<char*>(out) + o * esize;
+    if (out_vec && cl + per <= cols) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int i = 0; i < per && cl + i < cols; ++i)
+        for (int b = 0; b < esize; ++b)
+          dst[i * esize + b] = static_cast<const char*>(src)[i * esize + b];
+    }
+  }
+  if (kArgmax) {
+    const bool map_vec = hidden % 16 == 0 && (uintptr_t)amax_map % 16 == 0;
+    for (int e = tid; e < kBM * (kBN / 16); e += kThreads) {
+      const int rl = e / (kBN / 16);
+      const int cl = e % (kBN / 16) * 16;
+      if (rl >= rows || cl >= cols) continue;
+      int8_t* dst = amax_map + (size_t)(row0 + rl) * hidden + col0 + cl;
+      const int8_t* src = tile_m + rl * kMapLd + cl;
+      if (map_vec && cl + 16 <= cols) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
       } else {
-        static_cast<float*>(out)[o] = v;
+        for (int i = 0; i < 16 && cl + i < cols; ++i) dst[i] = src[i];
       }
-      if (kArgmax) amax_map[o] = (int8_t)((arg[i][q / 4] >> (8 * (q % 4))) & 0xFFu);
     }
   }
 }
@@ -335,22 +540,45 @@ __global__ void geo_embedding_bwd_reduce(const float* __restrict__ part, int chu
 
 }  // namespace
 
+// bf16 elements of the split-weight scratch `wsplit` that roitr_geo_embedding
+// takes: 2 weights x slices x (hi, lo) x columns padded to 256 x 32
+extern "C" int roitr_geo_embedding_wsplit_elems(int hidden) {
+  return 2 * slices_of(hidden) * 2 * ncols_of(hidden) * kBK;
+}
+
+// Resident blocks an SM of the current device takes of the forward kernel (with or
+// without the map), from its registers and shared memory.
+extern "C" int roitr_geo_embedding_blocks_per_sm(int argmax, int* blocks) {
+  auto kernel = argmax ? &geo_embedding_kernel<true> : &geo_embedding_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads,
+                                                            kSmemBytes);
+}
+
 extern "C" int roitr_geo_embedding(const float* d_idx, const float* a_idx, const float* div,
                                    const float* wde, const float* wdo, const float* bd,
                                    const float* wae, const float* wao, const float* ba,
-                                   void* out, int8_t* amax_map, int r_total, int k_total,
-                                   int hidden, int out_bf16, void* stream) {
-  if (k_total < 1 || k_total > 127 || hidden % 2) return (int)cudaErrorInvalidValue;
-  const dim3 grid((r_total + kTM - 1) / kTM, (hidden + kTN - 1) / kTN);
-  if (amax_map) {
-    geo_embedding_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        d_idx, a_idx, div, wde, wdo, bd, wae, wao, ba, out, amax_map, r_total, k_total, hidden,
-        out_bf16);
-  } else {
-    geo_embedding_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        d_idx, a_idx, div, wde, wdo, bd, wae, wao, ba, out, amax_map, r_total, k_total, hidden,
-        out_bf16);
-  }
+                                   void* out, int8_t* amax_map, void* wsplit, int r_total,
+                                   int k_total, int hidden, int out_bf16, void* stream) {
+  if (k_total < 1 || k_total > 127 || hidden < 2 || hidden % 2 || r_total < 0)
+    return (int)cudaErrorInvalidValue;
+  if (r_total == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  __nv_bfloat16* ws = static_cast<__nv_bfloat16*>(wsplit);
+  const int elems = roitr_geo_embedding_wsplit_elems(hidden) / 2;  // one thread writes hi and lo
+  geo_embedding_split_weights<<<(elems + 255) / 256, 256, 0, st>>>(wde, wdo, wae, wao, ws,
+                                                                  hidden);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((r_total + kBM - 1) / kBM, ncols_of(hidden) / kBN);
+  auto kernel = amax_map ? &geo_embedding_kernel<true> : &geo_embedding_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, kSmemBytes, st>>>(d_idx, a_idx, div, ws, bd, ba, out, amax_map,
+                                             r_total, k_total, hidden, out_bf16);
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,36 @@ def geo_embedding_plain(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32,
     return out
 
 
+def split_bf16(x: torch.Tensor):
+    """x (fp32) -> (hi, lo) bf16 with hi = bf16(x), lo = bf16(x - hi): hi + lo
+    carries about 16 of fp32's 24 significand bits."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_product(e: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """e @ w as the kernel's tensor cores take it: hi.hi + hi.lo + lo.hi of the
+    split operands (each bf16 product exact in fp32), summed in fp32."""
+    e_hi, e_lo = (t.float() for t in split_bf16(e))
+    w_hi, w_lo = (t.float() for t in split_bf16(w))
+    return e_hi @ w_hi + e_hi @ w_lo + e_lo @ w_hi
+
+
+def geo_embedding_split_plain(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32,
+                              with_argmax: bool = False):
+    """Same function and arguments as geo_embedding_plain, with its products
+    taken as csrc/geo_embedding.cu takes them (three split-bf16 products,
+    fp32 sums). Emulates the kernel's numerics on any device; the tests and
+    chip_smoke.py use it, the model does not."""
+    hidden = wd.shape[1]
+    y = _split_product(sinusoidal_basis(d_idx, hidden), wd) + bd
+    ya = _split_product(sinusoidal_basis(a_idx, hidden), wa)  # (R, k, H)
+    out = (y + torch.amax(ya, dim=-2) + ba).to(out_dtype)
+    if with_argmax:
+        return out, torch.argmax(ya, dim=-2).to(torch.int8)
+    return out
+
+
 def geo_embedding_bwd_plain(d_idx, a_idx, amax, g, hidden: int):
     """Cotangent g (R, H) and the argmax map -> (dwd, dbd, dwa), dba == dbd
     (roitr_tpu `_pallas_backward`); math in fp32, or in g's dtype if wider."""
@@ -87,8 +117,9 @@ def _kernel_args(d_idx, a_idx, hidden: int, wd=None, bd=None, wa=None, ba=None):
 
 def fused_geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32,
                         with_argmax: bool = False):
-    """Same function and arguments as geo_embedding_plain; one kernel
-    launch on the card."""
+    """Same function and arguments as geo_embedding_plain; on the card one
+    launch of the weight split and the tensor-core kernel, whose products
+    geo_embedding_split_plain emulates."""
     if route(d_idx) == "plain":
         return geo_embedding_plain(d_idx, a_idx, wd, bd, wa, ba, out_dtype, with_argmax)
     from roitr_torch.kernels.build import function
@@ -101,10 +132,13 @@ def fused_geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32,
     dev = d_idx.device
     out = torch.empty((r, hidden), dtype=out_dtype, device=dev)
     amax = torch.empty((r, hidden), dtype=torch.int8, device=dev) if with_argmax else None
+    # the weights split into bf16 hi / lo by the launch, in the kernel's layout
+    wsplit = torch.empty(function("geo_embedding", "roitr_geo_embedding_wsplit_elems",
+                                  [ctypes.c_int])(hidden), dtype=torch.bfloat16, device=dev)
     fn = function("geo_embedding", "roitr_geo_embedding",
-                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                  [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     err = fn(*(ptr(t) for t in args), ptr(out),
-             ptr(amax) if with_argmax else ctypes.c_void_p(None), r, k, hidden,
+             ptr(amax) if with_argmax else ctypes.c_void_p(None), ptr(wsplit), r, k, hidden,
              int(out_dtype == torch.bfloat16), stream_ptr(dev))
     check_launch(err, "geo_embedding")
     launch_counts["geo_embedding"] += 1

@@ -94,20 +94,32 @@ def test_fps_kernel_exact(dev, n, counts, m):
     assert torch.equal(got, fps_plain(p, c, m))
 
 
-@pytest.mark.parametrize("r,k,hidden", [(300, 3, 64), (4096, 3, 256), (77, 1, 32), (130, 2, 256)])
+@pytest.mark.parametrize("r,k,hidden", [
+    (300, 3, 64), (4096, 3, 256), (77, 1, 32), (130, 2, 256),
+    (777, 3, 512),   # 4DMatch width (two column tiles), ragged rows
+    (301, 3, 40),    # hidden / 2 = 20: a K-slice half past the frequencies
+    (65, 2, 42),     # rows of 84 / 168 bytes: the epilogue's scalar stores
+    (515, 1, 256),   # k = 1 at full width
+])
 def test_geo_embedding_kernel(dev, r, k, hidden):
     g = torch.Generator().manual_seed(r)
     d = (torch.rand(r, generator=g) * 20).to(dev)
     a = (torch.rand(r, k, generator=g) * 12).to(dev)
+    a[::16] = a[::16, :1]  # tied rows: a padded neighbour repeats the first
     wd, wa = ((torch.randn(hidden, hidden, generator=g) / 8).to(dev) for _ in range(2))
     bd, ba = ((torch.randn(hidden, generator=g) / 8).to(dev) for _ in range(2))
-    ref = geo_embedding_plain(d, a, wd, bd, wa, ba)
+    ref, ref_map = geo_embedding_plain(d, a, wd, bd, wa, ba, with_argmax=True)
     got = _launched("geo_embedding", lambda: fused_geo_embedding(d, a, wd, bd, wa, ba))
     _close(got, ref)
     got16 = _launched("geo_embedding", lambda: fused_geo_embedding(d, a, wd, bd, wa, ba,
                                                                   out_dtype=torch.bfloat16))
     assert got16.dtype == torch.bfloat16
     _close(got16, ref, frac=1 / 128)
+    got, amap = _launched("geo_embedding", lambda: fused_geo_embedding(
+        d, a, wd, bd, wa, ba, with_argmax=True))
+    _close(got, ref)
+    assert float((amap != ref_map).float().mean()) <= 1e-3
+    assert torch.equal(amap[::16], ref_map[::16])  # ties: torch.argmax's first k exactly
 
 
 @pytest.mark.parametrize("n,d,h,dtype,valid", [
@@ -238,6 +250,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rpe_attention_bwd(x, x, x, torch.rand(16, 3, 32, device=dev),
                           torch.rand(16, 16, 32, device=dev), torch.ones(16, device=dev), x,
                           torch.rand(16, 3, 32, device=dev))
+    w, b = torch.rand(32, 32, device=dev), torch.rand(32, device=dev)
+    with pytest.raises(RuntimeError, match="geo_embedding kernel refused"):  # k > 127: int8 map
+        fused_geo_embedding(torch.rand(4, device=dev), torch.rand(4, 128, device=dev), w, b, w, b)
     with pytest.raises(TypeError, match="dtype"):
         geo_embedding_bwd(torch.rand(8, device=dev), torch.rand(8, 3, device=dev),
                           torch.zeros(8, 32, dtype=torch.int8, device=dev),
