@@ -16,7 +16,7 @@
 // on the bf16 tensor cores (mma.sync m16n8k16, fp32 accumulators), each
 // fp32 operand x split into hi = bf16(x) and lo = bf16(x - hi) and the
 // product taken as lo.hi + hi.lo + hi.hi (lo.lo dropped): three products,
-// 4.2e11 FLOP, 0.425 ms at the H100's 989 TFLOP/s dense bf16. Why three:
+// 4.1e11 FLOP, 0.417 ms at the H100's 989 TFLOP/s dense bf16. Why three:
 // against float64 at R 8192, H 256, k 3 (weights U(+-1/16)), the error over
 // the largest |ref| and the share of the argmax map that differs are
 // 7.7e-07 / 1.4e-06 for fp32, 5.0e-06 / 4.8e-06 for the three split
@@ -34,20 +34,28 @@
 // memory. B, the weights, is split into hi/lo once per launch by
 // `geo_embedding_split_weights` into a slice-major scratch and streamed
 // through a two-stage cp.async ring while the next slice's basis is
-// generated. Both operands reach the tensor cores by ldmatrix, from rows
-// padded to 80 bytes (eight rows on distinct banks). The k angle phases run
-// first, phase 1 straight into the running max and each later one into a
-// second array folded in with a strict > (ties keep the first k, as
-// torch.argmax does; a padded neighbour repeats the row point, so its
+// generated; half the warps generate before their products and half after,
+// so that each SM sub-partition keeps one warp on the tensor pipe while the
+// other computes sines. Both operands reach the tensor cores by ldmatrix,
+// from rows padded to 80 bytes (eight rows on distinct banks). The k angle
+// phases run first, phase 1 straight into the running max and each later
+// one into a second array folded in with a strict > (ties keep the first
+// k, as torch.argmax does; a padded neighbour repeats the row point, so its
 // phase accumulates the same values in the same order and ties exactly);
 // the distance phase then accumulates on top of the max. Two arrays of 64
 // fp32 a thread. The epilogue adds the biases, stages the tile in shared
 // memory in the storage dtype and writes each row once with 16-byte
 // stores; under differentiation it also writes the int8 (R, H) map of the
-// winning k the same way.
+// winning k the same way. One block an SM (239 / 253 registers without /
+// with the map, no spills).
 //
-// Later work: wgmma with A from registers and B by TMA, and a persistent
-// grid whose next tile's basis overlaps this tile's epilogue.
+// On an H100 80GB HBM3 at 700 W this is 5-6x off its tensor-core bound at
+// the shape above: the sines, the ldmatrix traffic and the products mostly
+// queue behind each other in 8 warps an SM (the variants tool,
+// tools/torch_geo_embedding_variants.py, times it without each). Later
+// work: wgmma with A from registers and B by TMA (asynchronous products,
+// no fragment loads through the register file), and a persistent grid
+// whose next tile's basis overlaps this tile's products and epilogue.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,14 +63,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;    // the backward's block
 constexpr int kBM = 64;          // rows of a block
 constexpr int kBN = 256;         // columns of a block
-constexpr int kWM = 32;          // rows of a warp (warps 2 x 4)
+constexpr int kWM = 32;          // rows of a warp
 constexpr int kWN = 64;          // columns of a warp
 constexpr int kMT = kWM / 16;    // m16 tiles of a warp
 constexpr int kNT = kWN / 8;     // n8 tiles of a warp
+constexpr int kWarpsN = kBN / kWN;
+constexpr int kFwdThreads = 32 * (kBM / kWM) * kWarpsN;
 constexpr int kFreq = 16;        // frequencies a K-slice
+constexpr int kGenF = kBM * kFreq / kFwdThreads;  // frequencies a thread generates a slice
 constexpr int kBK = 2 * kFreq;   // K columns a slice: kFreq sin, then kFreq cos
 constexpr int kLd = kBK + 8;     // shared row stride in bf16: 80 bytes
 constexpr int kAElems = kBM * kLd;
@@ -147,7 +158,9 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_
 
 // acc += A . B over one K-slice of a stage (byte addresses of its A hi, A lo,
 // B hi, B lo tiles in shared memory): two k16 steps of three split
-// products. Pairs of n8 tiles at or past the last column are skipped.
+// products, each product over all of the warp's tiles before the next, so
+// that consecutive mma are independent. Pairs of n8 tiles at or past the
+// last column are skipped.
 __device__ __forceinline__ void mma_slice(float (&acc)[kMT][kNT][4], uint32_t a_hi,
                                           uint32_t a_lo, uint32_t b_hi, uint32_t b_lo,
                                           int lane, int warp_m, int warp_n, int ncol_left) {
@@ -161,29 +174,35 @@ __device__ __forceinline__ void mma_slice(float (&acc)[kMT][kNT][4], uint32_t a_
       ldsm_x4(a_hi + off, ah[mt]);
       ldsm_x4(a_lo + off, al[mt]);
     }
+    uint32_t bh[kNT / 2][4], bl[kNT / 2][4];
 #pragma unroll
     for (int np = 0; np < kNT / 2; ++np) {
       if (warp_n * kWN + np * 16 >= ncol_left) continue;  // warp-uniform
       const int n = warp_n * kWN + np * 16 + lane % 8 + (lane / 16) * 8;
       const uint32_t off = (uint32_t)(n * kLd + ks * 16 + ((lane / 8) % 2) * 8) * 2;
-      uint32_t bh[4], bl[4];
-      ldsm_x4(b_hi + off, bh);
-      ldsm_x4(b_lo + off, bl);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          float (&c)[4] = acc[mt][2 * np + q];
-          mma_bf16(c, al[mt], bh[2 * q], bh[2 * q + 1]);
-          mma_bf16(c, ah[mt], bl[2 * q], bl[2 * q + 1]);
-          mma_bf16(c, ah[mt], bh[2 * q], bh[2 * q + 1]);
-        }
+      ldsm_x4(b_hi + off, bh[np]);
+      ldsm_x4(b_lo + off, bl[np]);
     }
+#pragma unroll
+    for (int p = 0; p < 3; ++p)  // lo.hi, hi.lo, hi.hi
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        if (warp_n * kWN + np * 16 >= ncol_left) continue;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float (&c)[4] = acc[mt][2 * np + q];
+            if (p == 0) mma_bf16(c, al[mt], bh[np][2 * q], bh[np][2 * q + 1]);
+            else if (p == 1) mma_bf16(c, ah[mt], bl[np][2 * q], bl[np][2 * q + 1]);
+            else mma_bf16(c, ah[mt], bh[np][2 * q], bh[np][2 * q + 1]);
+          }
+      }
   }
 }
 
 template <bool kArgmax>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kFwdThreads, 1)
 geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ a_idx,
                      const float* __restrict__ div, const __nv_bfloat16* __restrict__ wsplit,
                      const float* __restrict__ bd, const float* __restrict__ ba,
@@ -194,8 +213,8 @@ geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ 
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
-  const int warp_m = tid / 32 / 4;
-  const int warp_n = tid / 32 % 4;
+  const int warp_m = tid / 32 / kWarpsN;
+  const int warp_n = tid / 32 % kWarpsN;
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
   const int half = hidden / 2;
@@ -212,7 +231,7 @@ geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ 
     const __nv_bfloat16* src = wsplit + (size_t)ts * 2 * plane + (size_t)col0 * kBK;
     __nv_bfloat16* dst = sm + st * kStageElems + 2 * kAElems;
 #pragma unroll
-    for (int e = tid; e < 2 * kBN * 4; e += kThreads) {
+    for (int e = tid; e < 2 * kBN * 4; e += kFwdThreads) {
       const int h = e / (kBN * 4);
       const int n = e / 4 % kBN;
       const int c = e % 4;
@@ -222,31 +241,32 @@ geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ 
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  // A of step `it` into stage `st`: this thread's row and 4 frequencies
-  const int gr = tid / 4;
-  const int gf = tid % 4 * 4;
+  // A of step `it` into stage `st`: this thread's row and kGenF frequencies
+  const int gr = tid / (kFreq / kGenF);
+  const int gf = tid % (kFreq / kGenF) * kGenF;
   const int grow = row0 + gr;
   auto gen_a = [&](int it, int st) {
     const int q = it / slices;
     const int j0 = it % slices * kFreq + gf;
     float x = 0.f;
     if (grow < r_total) x = q == k_total ? d_idx[grow] : a_idx[(size_t)grow * k_total + q];
-    float sv[4], cv[4];
+    float sv[kGenF], cv[kGenF];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kGenF; ++i) {
       sv[i] = cv[i] = 0.f;
       if (grow < r_total && j0 + i < half) sincosf(x * div[j0 + i], &sv[i], &cv[i]);
     }
-    uint2 sh, sl, ch, cl;
-    split2(sv[0], sv[1], sh.x, sl.x);
-    split2(sv[2], sv[3], sh.y, sl.y);
-    split2(cv[0], cv[1], ch.x, cl.x);
-    split2(cv[2], cv[3], ch.y, cl.y);
     __nv_bfloat16* a = sm + st * kStageElems + gr * kLd + gf;
-    *reinterpret_cast<uint2*>(a) = sh;
-    *reinterpret_cast<uint2*>(a + kFreq) = ch;
-    *reinterpret_cast<uint2*>(a + kAElems) = sl;
-    *reinterpret_cast<uint2*>(a + kAElems + kFreq) = cl;
+#pragma unroll
+    for (int i = 0; i < kGenF; i += 2) {
+      uint32_t hi, lo;
+      split2(sv[i], sv[i + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(a + i) = hi;
+      *reinterpret_cast<uint32_t*>(a + kAElems + i) = lo;
+      split2(cv[i], cv[i + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(a + kFreq + i) = hi;
+      *reinterpret_cast<uint32_t*>(a + kAElems + kFreq + i) = lo;
+    }
   };
 
   float mx[kMT][kNT][4];   // running max over k, then + the distance part
@@ -267,9 +287,12 @@ geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ 
     const int st = it & 1;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // step it's A and B are in; every warp is done with it - 1
+    // half the warps generate the next basis before their products, half
+    // after, so each SM sub-partition has a warp on each pipe
+    const bool gen_first = tid < kFwdThreads / 2;
     if (it + 1 < steps) {
       load_b(it + 1, st ^ 1);
-      gen_a(it + 1, st ^ 1);
+      if (gen_first) gen_a(it + 1, st ^ 1);
     }
     const int q = it / slices;
     const uint32_t a_hi = smem_u32(sm + st * kStageElems);
@@ -294,6 +317,7 @@ geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ 
             }
       }
     }
+    if (!gen_first && it + 1 < steps) gen_a(it + 1, st ^ 1);
   }
 
   // epilogue: the tile (+ biases) in the storage dtype, and the map, through
@@ -334,7 +358,7 @@ geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ 
   const int esize = out_bf16 ? 2 : 4;
   const bool out_vec = (size_t)hidden * esize % 16 == 0 && (uintptr_t)out % 16 == 0;
   const int per = 16 / esize;  // elements a 16-byte chunk
-  for (int e = tid; e < kBM * (kBN / per); e += kThreads) {
+  for (int e = tid; e < kBM * (kBN / per); e += kFwdThreads) {
     const int rl = e / (kBN / per);
     const int cl = e % (kBN / per) * per;
     if (rl >= rows || cl >= cols) continue;
@@ -352,7 +376,7 @@ geo_embedding_kernel(const float* __restrict__ d_idx, const float* __restrict__ 
   }
   if (kArgmax) {
     const bool map_vec = hidden % 16 == 0 && (uintptr_t)amax_map % 16 == 0;
-    for (int e = tid; e < kBM * (kBN / 16); e += kThreads) {
+    for (int e = tid; e < kBM * (kBN / 16); e += kFwdThreads) {
       const int rl = e / (kBN / 16);
       const int cl = e % (kBN / 16) * 16;
       if (rl >= rows || cl >= cols) continue;
@@ -553,7 +577,7 @@ extern "C" int roitr_geo_embedding_blocks_per_sm(int argmax, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kFwdThreads,
                                                             kSmemBytes);
 }
 
@@ -577,7 +601,7 @@ extern "C" int roitr_geo_embedding(const float* d_idx, const float* a_idx, const
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, kSmemBytes, st>>>(d_idx, a_idx, div, ws, bd, ba, out, amax_map,
+  kernel<<<grid, kFwdThreads, kSmemBytes, st>>>(d_idx, a_idx, div, ws, bd, ba, out, amax_map,
                                              r_total, k_total, hidden, out_bf16);
   return (int)cudaGetLastError();
 }
