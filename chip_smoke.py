@@ -5,8 +5,8 @@
 Phases, each of which exits non-zero on failure:
   1. device    name, count and power limit of the card (fails without one)
   2. build     nvcc of every kernel in roitr_torch/csrc/, with ptxas's report
-               (the tensor-core geometric embedding's registers, spills and
-               resident blocks an SM apart)
+               (the tensor-core geometric embedding's forward and backward:
+               registers, spills and resident blocks an SM apart)
   3. kernels   each kernel, forward and backward, against its plain PyTorch
                version on the card at the 32768-point bucket's shapes (FPS
                exact, the others within stated tolerances), timed with CUDA
@@ -102,27 +102,35 @@ def phase_build():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # the tensor-core geometric embedding: registers, spills, blocks an SM
+    # the tensor-core geometric embedding, forward (with and without the map)
+    # and backward (bf16 and fp32 cotangent): registers, spills, blocks an SM
     import ctypes
 
     from roitr_torch.kernels.build import function
 
-    current = ""
+    def label(mangled):
+        if "geo_embedding_bwd_kernel" in mangled:
+            return f"geo_embedding_bwd_kernel<{'bf16' if 'bfloat16' in mangled else 'fp32'} g>"
+        if "geo_embedding_kernel" in mangled:
+            return f"geo_embedding_kernel<{'map' if 'ILb1E' in mangled else 'no map'}>"
+        return None
+
+    current = None
     for line in reports["geo_embedding"].splitlines():
         if "Compiling entry function" in line:
-            current = line.split("'")[1]
-        elif "geo_embedding_kernel" in current and ("Used" in line or "spill" in line):
-            with_map = "ILb1E" in current
-            print(f"[build] geo_embedding_kernel<{'map' if with_map else 'no map'}>: "
-                  f"{line.split(':', 1)[-1].strip()}")
-    fn = function("geo_embedding", "roitr_geo_embedding_blocks_per_sm",
-                  [ctypes.c_int, ctypes.c_void_p])
-    for with_map in (1, 0):
+            current = label(line.split("'")[1])
+        elif current and ("Used" in line or "spill" in line):
+            print(f"[build] {current}: {line.split(':', 1)[-1].strip()}")
+    for symbol, arg, name in (
+            ("roitr_geo_embedding_blocks_per_sm", 1, "geo_embedding_kernel<map>"),
+            ("roitr_geo_embedding_blocks_per_sm", 0, "geo_embedding_kernel<no map>"),
+            ("roitr_geo_embedding_bwd_blocks_per_sm", 1, "geo_embedding_bwd_kernel<bf16 g>"),
+            ("roitr_geo_embedding_bwd_blocks_per_sm", 0, "geo_embedding_bwd_kernel<fp32 g>")):
         blocks = ctypes.c_int(0)
-        if fn(with_map, ctypes.byref(blocks)) != 0:
-            fail("cudaOccupancyMaxActiveBlocksPerMultiprocessor failed for geo_embedding_kernel")
-        print(f"[build] geo_embedding_kernel<{'map' if with_map else 'no map'}>: "
-              f"{blocks.value} resident block(s) of 256 threads an SM")
+        fn = function("geo_embedding", symbol, [ctypes.c_int, ctypes.c_void_p])
+        if fn(arg, ctypes.byref(blocks)) != 0:
+            fail(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed for {name}")
+        print(f"[build] {name}: {blocks.value} resident block(s) of 256 threads an SM")
 
 
 def phase_kernels(rng):
@@ -133,6 +141,7 @@ def phase_kernels(rng):
         fused_geo_embedding,
         geo_embedding_bwd,
         geo_embedding_bwd_plain,
+        geo_embedding_bwd_split_plain,
         geo_embedding_plain,
         geo_embedding_split_plain,
     )
@@ -239,9 +248,14 @@ def phase_kernels(rng):
         dref = geo_embedding_bwd_plain(d_idx, a_idx, amap, g, 256)
         err = max(float((a - b).abs().max()) for a, b in zip(dgot, dref))
         top = max(float(b.abs().max()) for b in dref)
+        demu = geo_embedding_bwd_split_plain(d_idx, a_idx, amap, g, 256)
+        err_emu = max(float((a - b).abs().max()) for a, b in zip(dgot, demu))
+        emu_err = max(float((a - b).abs().max()) for a, b in zip(demu, dref))
+        del demu
     print(f"[kernels] geo_embedding_bwd R={r} H=256 k={k} bf16 cotangent: max abs err "
-          f"{err:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g}); argmax map: {map_mism} of "
-          f"{amap.numel()} entries differ from the plain argmax (near-ties within rounding)",
+          f"{err:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g}); kernel vs its split-bf16 "
+          f"emulation {err_emu:.3g}, emulation vs plain {emu_err:.3g}; argmax map: {map_mism} "
+          f"of {amap.numel()} entries differ from the plain argmax (near-ties within rounding)",
           flush=True)
     if not err <= 1e-4 * top:
         fail("geo_embedding_bwd kernel outside tolerance")
@@ -250,12 +264,21 @@ def phase_kernels(rng):
              f"(tol 1e-3 of {amap.numel()})")
     ms = cuda_ms(lambda: geo_embedding_bwd(d_idx, a_idx, amap, g, 256), 5)
     plain_ms = cuda_ms(lambda: geo_embedding_bwd_plain(d_idx, a_idx, amap, g, 256), 2)
-    rows["geo_embedding_bwd"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bytes=r * 4 + r * k * 4 + r * 256 * (1 + 2) + 4 * (2 * 256 * 256 + 256),
-        # each cotangent entry meets one basis row of each projection (the
-        # distance's, and the angle's of its winning k): dWd and dWa
-        flops=2.0 * r * 2 * 256 * 256)
+    # each cotangent entry meets one basis row of each projection (the
+    # distance's, and the angle's of its winning k): dWd and dWa; the kernel
+    # takes each product as two bf16 products (basis hi and lo) on the tensor
+    # cores, and multiplies the masked g of every one of the 1 + k phases
+    byt = r * 4 + r * k * 4 + r * 256 * (1 + 2) + 4 * (2 * 256 * 256 + 256)
+    flops = 2.0 * r * 2 * 256 * 256
+    fp32_ms, _ = bound(byt, flops)
+    tc_ms, tc_by = bound(byt, 2 * flops, BF16_TC_FLOP_PER_S)
+    masked_ms, _ = bound(byt, 2 * flops * (1 + k) / 2, BF16_TC_FLOP_PER_S)
+    print(f"[kernels] geo_embedding_bwd bound: {flops:.3g} FLOP, {fp32_ms:.3f} ms on the fp32 "
+          f"CUDA cores; two bf16 products {2 * flops:.3g} FLOP, {tc_ms:.3f} ms on the tensor "
+          f"cores ({tc_by}); the masked products of all {1 + k} phases {masked_ms:.3f} ms; bytes "
+          f"{byt / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel {ms:.3f} ms", flush=True)
+    rows["geo_embedding_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=byt,
+                                     flops=2 * flops, peak=BF16_TC_FLOP_PER_S)
 
     # ---- RPE self-attention: N = 512, D = 256, H = 4, bf16 embedding
     n, d, h = 512, 256, 4

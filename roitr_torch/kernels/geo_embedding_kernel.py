@@ -94,6 +94,26 @@ def geo_embedding_bwd_plain(d_idx, a_idx, amax, g, hidden: int):
     return dwd, g.sum(dim=0), dwa
 
 
+def geo_embedding_bwd_split_plain(d_idx, a_idx, amax, g, hidden: int):
+    """Same function and arguments as geo_embedding_bwd_plain (g fp32 or
+    bf16), with its products taken as csrc/geo_embedding.cu's backward takes
+    them: the basis split into bf16 hi + lo, the cotangent split only when it
+    is fp32 (a bf16 g is its own hi, its lo zero), masked per phase, fp32
+    sums. Emulates the kernel's numerics on any device; the tests and
+    chip_smoke.py use it, the model does not."""
+    g_hi, g_lo = (t.float() for t in split_bf16(g.float()))
+
+    def product(e, mask=None):  # e^T (g * mask): lo.hi + hi.lo + hi.hi
+        e_hi, e_lo = (t.float() for t in split_bf16(e))
+        gh, gl = (g_hi, g_lo) if mask is None else (g_hi * mask, g_lo * mask)
+        return e_lo.t() @ gh + e_hi.t() @ gl + e_hi.t() @ gh
+
+    dwd = product(sinusoidal_basis(d_idx.float(), hidden))
+    e_a = sinusoidal_basis(a_idx.float(), hidden)  # (R, k, H)
+    dwa = sum(product(e_a[:, q], (amax == q).float()) for q in range(a_idx.shape[1]))
+    return dwd, g.float().sum(dim=0), dwa
+
+
 def _kernel_args(d_idx, a_idx, hidden: int, wd=None, bd=None, wa=None, ba=None):
     """The kernels' checked fp32 inputs: indices, frequencies and, for the
     forward, the even / odd rows of the (in, out) weights
@@ -145,13 +165,15 @@ def fused_geo_embedding(d_idx, a_idx, wd, bd, wa, ba, out_dtype=torch.float32,
     return (out, amax) if with_argmax else out
 
 
-# blocks of the backward's row reduction: about two waves of the H100's 132 SMs
+# blocks of the backward's row reduction: two waves of the H100's 132 SMs at
+# one block an SM
 _BWD_TARGET_BLOCKS = 264
 
 
 def geo_embedding_bwd(d_idx, a_idx, amax, g, hidden: int):
-    """Same function and arguments as geo_embedding_bwd_plain; one launch of
-    the backward kernel and its chunk reduction on the card."""
+    """Same function and arguments as geo_embedding_bwd_plain; on the card one
+    launch of the tensor-core backward kernel, whose products
+    geo_embedding_bwd_split_plain emulates, and its chunk-ordered reduction."""
     if route(d_idx) == "plain":
         return geo_embedding_bwd_plain(d_idx, a_idx, amax, g, hidden)
     from roitr_torch.kernels.build import function
@@ -164,7 +186,8 @@ def geo_embedding_bwd(d_idx, a_idx, amax, g, hidden: int):
     check_cuda(g, "g", g.dtype, (r, hidden), dev)
     check_cuda(amax, "amax", torch.int8, (r, hidden), dev)
     h2 = hidden // 2
-    tiles = -(-h2 // 64) * -(-hidden // 128)  # the kernel's (64, 128) output tiles
+    # the kernel's output tiles: 32 frequencies (64 basis rows) x 256 columns
+    tiles = -(-h2 // 32) * -(-hidden // 256)
     chunks = max(1, min(-(-_BWD_TARGET_BLOCKS // tiles), -(-r // 32)))
     part = torch.empty((chunks, 4, h2, hidden), dtype=torch.float32, device=dev)
     part_db = torch.empty((chunks, hidden), dtype=torch.float32, device=dev)

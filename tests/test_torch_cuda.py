@@ -206,7 +206,13 @@ def test_rpe_attention_bwd_kernel(dev, n, d, h, dtype, valid):
 
 @pytest.mark.parametrize("r,k,hidden,gdtype", [
     (300, 3, 64, torch.float32), (4096, 3, 256, torch.bfloat16), (77, 1, 32, torch.float32),
-    (130, 2, 256, torch.bfloat16), (262144, 3, 256, torch.bfloat16)])
+    (130, 2, 256, torch.bfloat16), (262144, 3, 256, torch.bfloat16),
+    (777, 3, 512, torch.float32),    # 4DMatch width: two column tiles, ragged rows
+    (1000, 2, 512, torch.bfloat16),
+    (301, 3, 40, torch.bfloat16),    # hidden / 2 = 20: a j-tile past the frequencies
+    (65, 2, 42, torch.float32),      # rows of 84 / 168 bytes: no cp.async, scalar loads
+    (515, 1, 256, torch.bfloat16),   # k = 1 at full width
+])
 def test_geo_embedding_bwd_kernel(dev, r, k, hidden, gdtype):
     g = torch.Generator().manual_seed(r + 7)
     d = (torch.rand(r, generator=g) * 20).to(dev)
@@ -225,6 +231,30 @@ def test_geo_embedding_bwd_kernel(dev, r, k, hidden, gdtype):
     got = _launched("geo_embedding_bwd", lambda: geo_embedding_bwd(d, a, ref_map, cot, hidden))
     for a_, b_ in zip(got, ref):
         _close(a_, b_)
+
+
+@pytest.mark.parametrize("r,k,hidden,gdtype", [
+    (20000, 3, 256, torch.bfloat16),  # 66 chunks in the chunk-ordered reduction
+    (300, 127, 64, torch.float32),    # the largest k the int8 map holds
+    (99, 5, 42, torch.bfloat16),
+])
+def test_geo_embedding_bwd_kernel_last_k_and_repeat(dev, r, k, hidden, gdtype):
+    """A map that sends every element of some rows to the last k, and two
+    launches that give bit-equal gradients (no atomics in the reduction)."""
+    g = torch.Generator().manual_seed(r + k)
+    d = (torch.rand(r, generator=g) * 20).to(dev)
+    a = (torch.rand(r, k, generator=g) * 12).to(dev)
+    amap = torch.randint(0, k, (r, hidden), generator=g).to(torch.int8)
+    amap[::3] = k - 1
+    amap = amap.to(dev)
+    cot = torch.randn(r, hidden, generator=g).to(dev, gdtype)
+    ref = geo_embedding_bwd_plain(d, a, amap, cot, hidden)
+    got = _launched("geo_embedding_bwd", lambda: geo_embedding_bwd(d, a, amap, cot, hidden))
+    for a_, b_ in zip(got, ref):
+        _close(a_, b_)
+    again = _launched("geo_embedding_bwd", lambda: geo_embedding_bwd(d, a, amap, cot, hidden))
+    for a_, b_ in zip(got, again):
+        assert torch.equal(a_, b_)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -257,6 +287,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         geo_embedding_bwd(torch.rand(8, device=dev), torch.rand(8, 3, device=dev),
                           torch.zeros(8, 32, dtype=torch.int8, device=dev),
                           torch.rand(8, 32, device=dev).half(), 32)
+    with pytest.raises(ValueError, match="even"):
+        geo_embedding_bwd(torch.rand(8, device=dev), torch.rand(8, 3, device=dev),
+                          torch.zeros(8, 33, dtype=torch.int8, device=dev),
+                          torch.rand(8, 33, device=dev), 33)
     assert kernels.launch_counts == before
     # a refusal leaves no error behind for the next launch
     small = torch.zeros(1, 5, 5, device=dev)

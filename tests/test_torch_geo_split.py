@@ -9,6 +9,13 @@ One bf16 product (no lo terms) misses that tolerance, which is why the
 kernel takes three. Inputs as chip_smoke.py draws them: weights U(+-1/16),
 a quarter of the rows with a repeated angle neighbour (a tie the map must
 resolve to the first k).
+
+The backward takes its products the same way, the basis split, the
+cotangent split only when it is fp32 (a bf16 cotangent is exact in bf16):
+`geo_embedding_bwd_split_plain` is held within 1e-4 of the largest |ref|
+of a float64 reference for both cotangent dtypes, given the float64
+forward's map; one product (the basis's hi part alone) misses that, which
+is why the kernel takes two for a bf16 cotangent.
 """
 
 import numpy as np
@@ -16,6 +23,8 @@ import pytest
 import torch
 
 from roitr_torch.kernels.geo_embedding_kernel import (
+    geo_embedding_bwd_plain,
+    geo_embedding_bwd_split_plain,
     geo_embedding_plain,
     geo_embedding_split_plain,
     sinusoidal_basis,
@@ -68,3 +77,36 @@ def test_one_bf16_product_misses_the_fp32_tolerance(inputs):
     ya = bf(sinusoidal_basis(a, H)) @ bf(wa)
     one = y + ya.amax(dim=-2) + ba
     assert float((one.double() - ref).abs().max()) > 1e-4 * float(ref.abs().max())
+
+
+@pytest.fixture(scope="module")
+def cotangent():
+    return torch.from_numpy(np.random.RandomState(5).randn(R, H).astype(np.float32))
+
+
+def _bwd_reference(inputs, g):
+    args, _, _, ref_map = inputs
+    d, a = args[:2]
+    return geo_embedding_bwd_plain(d.double(), a.double(), ref_map, g.double(), H)
+
+
+@pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
+def test_bwd_split_products_hold_the_fp32_tolerance(inputs, cotangent, gdtype):
+    args, _, _, ref_map = inputs
+    g = cotangent.to(gdtype)
+    got = geo_embedding_bwd_split_plain(args[0], args[1], ref_map, g, H)
+    for name, x, y in zip(("dwd", "dbd", "dwa"), got, _bwd_reference(inputs, g)):
+        assert x.dtype == torch.float32, name
+        assert float((x.double() - y).abs().max()) <= 1e-4 * float(y.abs().max()), name
+
+
+def test_bwd_one_bf16_product_misses_the_fp32_tolerance(inputs, cotangent):
+    args, _, _, ref_map = inputs
+    g = cotangent.to(torch.bfloat16)
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    dwd_ref, _, dwa_ref = _bwd_reference(inputs, g)
+    dwd = bf(sinusoidal_basis(args[0], H)).t() @ g.float()
+    e_a = bf(sinusoidal_basis(args[1], H))
+    dwa = sum(e_a[:, q].t() @ (g.float() * (ref_map == q)) for q in range(K))
+    assert float((dwd.double() - dwd_ref).abs().max()) > 1e-4 * float(dwd_ref.abs().max())
+    assert float((dwa.double() - dwa_ref).abs().max()) > 1e-4 * float(dwa_ref.abs().max())

@@ -9,8 +9,8 @@ the 32768 bucket by default): one warm-up step, then three steps split into
 forward (losses and metrics included), backward and optimizer, each border
 on the host clock after torch.cuda.synchronize(); then one step under
 torch.profiler: device time by kernel name (top 20), the device's busy
-share of the step's wall time, the share of the port's seven CUDA kernels,
-and the peak device memory of a step.
+share of the step's wall time, the share of the port's seven CUDA kernels
+and each one's device time and calls, and the peak device memory of a step.
 
 On the card, each line carries the card's name and power limit. With
 --device cpu it times the CPU run, whose numbers say nothing of the card.
@@ -95,6 +95,11 @@ def main() -> int:
                    if any(s in e.key for s in OUR_KERNELS)) / 1e3
         print(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
               f"({busy / wall_ms:.1%}), of which the port's seven kernels {ours:.1f} ms; {card}")
+        for name in OUR_KERNELS:
+            mine = [e for e in kernels if name in e.key]
+            print(f"[profile] port kernel {name}: "
+                  f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms in "
+                  f"{sum(e.count for e in mine)} calls")
         kernels.sort(key=lambda e: -e.self_device_time_total)
         prof_rows = []
         for e in kernels[:20]:
