@@ -6,7 +6,8 @@ Phases, each of which exits non-zero on failure:
   1. device    name, count and power limit of the card (fails without one)
   2. build     nvcc of every kernel in roitr_torch/csrc/, with ptxas's report
                (the tensor-core geometric embedding's forward and backward:
-               registers, spills and resident blocks an SM apart)
+               registers, spills and resident blocks an SM apart; the RPE
+               attention's kernels: registers, spills, shared memory)
   3. kernels   each kernel, forward and backward, against its plain PyTorch
                version on the card at the 32768-point bucket's shapes (FPS
                exact, the others within stated tolerances), timed with CUDA
@@ -115,12 +116,24 @@ def phase_build():
             return f"geo_embedding_kernel<{'map' if 'ILb1E' in mangled else 'no map'}>"
         return None
 
-    current = None
-    for line in reports["geo_embedding"].splitlines():
-        if "Compiling entry function" in line:
-            current = label(line.split("'")[1])
-        elif current and ("Used" in line or "spill" in line):
-            print(f"[build] {current}: {line.split(':', 1)[-1].strip()}")
+    def rpe_label(mangled):
+        heads = next((h for h in ("16", "8", "4") if f"Li{h}E" in mangled), "")
+        dtype = "bf16" if "bfloat16" in mangled else "fp32"
+        if "rpe_attention_bwd_rows" in mangled:
+            return f"rpe_attention_bwd_rows<{dtype} e, H <= {heads}>"
+        if "rpe_products" in mangled:
+            return f"rpe_products<{'64, 64' if 'ILi64ELi64E' in mangled else '64, 32'}>"
+        if "rpe_attention_kernel" in mangled:
+            return f"rpe_attention_kernel<{dtype} e, H <= {heads}>"
+        return None
+
+    for source, name_of in (("geo_embedding", label), ("rpe_attention", rpe_label)):
+        current = None
+        for line in reports[source].splitlines():
+            if "Compiling entry function" in line:
+                current = name_of(line.split("'")[1])
+            elif current and ("Used" in line or "spill" in line):
+                print(f"[build] {current}: {line.split(':', 1)[-1].strip()}")
     for symbol, arg, name in (
             ("roitr_geo_embedding_blocks_per_sm", 1, "geo_embedding_kernel<map>"),
             ("roitr_geo_embedding_blocks_per_sm", 0, "geo_embedding_kernel<no map>"),
@@ -131,6 +144,10 @@ def phase_build():
         if fn(arg, ctypes.byref(blocks)) != 0:
             fail(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed for {name}")
         print(f"[build] {name}: {blocks.value} resident block(s) of 256 threads an SM")
+    smem = function("rpe_attention", "roitr_rpe_attention_bwd_smem_bytes", [ctypes.c_int] * 3,
+                    ctypes.c_longlong)
+    print(f"[build] rpe_attention_bwd_rows dynamic shared memory a block (any N): "
+          f"{smem(256, 4, 1)} bytes at D 256, H 4, bf16; {smem(512, 4, 1)} at D 512", flush=True)
 
 
 def phase_kernels(rng):
@@ -148,6 +165,7 @@ def phase_kernels(rng):
     from roitr_torch.kernels.rpe_attention_kernel import (
         fused_rpe_self_attention,
         rpe_attention_bwd,
+        rpe_attention_bwd_onepass_plain,
         rpe_attention_bwd_plain,
         rpe_attention_plain,
     )
@@ -294,7 +312,22 @@ def phase_kernels(rng):
           f"max abs err {err:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g})", flush=True)
     if not err <= 1e-4 * top:
         fail("rpe_attention kernel outside tolerance")
+    # the log-sum-exps that training's forward also writes
+    fwd = fused_rpe_self_attention(q2, k2, v2, qwp, embed, mask, with_lse=True)
+    fwd_ref = rpe_attention_plain(q2, k2, v2, qwp, embed, mask, with_lse=True)
+    lse_err = max(float((a - b).abs().max()) for a, b in zip(fwd[2:], fwd_ref[2:]))
+    lse_top = max(float(b.abs().max()) for b in fwd_ref[2:])
+    same = all(torch.equal(a, b) for a, b in zip(fwd[:2], (hid, ae)))
+    print(f"[kernels] rpe_attention log-sum-exps: max abs err {lse_err:.3g} (tol 1e-4 * "
+          f"max|ref| = {1e-4 * lse_top:.3g}); hidden and ae bit-equal without them: {same}",
+          flush=True)
+    if not (lse_err <= 1e-4 * lse_top and same):
+        fail("rpe_attention kernel's log-sum-exps outside tolerance")
     ms = cuda_ms(lambda: fused_rpe_self_attention(q2, k2, v2, qwp, embed, mask), 10)
+    lse_ms = cuda_ms(lambda: fused_rpe_self_attention(q2, k2, v2, qwp, embed, mask,
+                                                      with_lse=True), 10)
+    print(f"[kernels] rpe_attention: {ms:.3f} ms without the log-sum-exps (serving), "
+          f"{lse_ms:.3f} ms with them (training)", flush=True)
     plain_ms = cuda_ms(lambda: rpe_attention_plain(q2, k2, v2, qwp, embed, mask), 3)
     rows["rpe_attention"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -305,9 +338,16 @@ def phase_kernels(rng):
     ghid = torch.randn(n, d, generator=gen).to(dev)
     gae = torch.randn(n, h, d, generator=gen).to(dev)
     args = (q2, k2, v2, qwp, embed, mask, ghid, gae)
-    got = rpe_attention_bwd(*args)
+    got = rpe_attention_bwd(*args, *fwd)
     ref = rpe_attention_bwd_plain(*args)
+    emu = rpe_attention_bwd_onepass_plain(*args, *fwd)
     torch.cuda.synchronize()
+    print(f"[kernels] rpe_attention_bwd kernel vs its one-pass emulation, max abs err "
+          f"{max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, emu)):.3g}; "
+          f"emulation vs plain "
+          f"{max(float((a.float() - b.float()).abs().max()) for a, b in zip(emu, ref)):.3g}",
+          flush=True)
+    del emu
     err = 0.0
     for name, a, b in zip(("dq", "dk", "dv", "dqwp", "demb"), got, ref):
         e, top = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
@@ -318,13 +358,14 @@ def phase_kernels(rng):
         if not e <= tol:
             fail(f"rpe_attention_bwd kernel outside tolerance in {name}")
         err = max(err, e)
-    ms = cuda_ms(lambda: rpe_attention_bwd(*args), 10)
+    ms = cuda_ms(lambda: rpe_attention_bwd(*args, *fwd), 10)
     plain_ms = cuda_ms(lambda: rpe_attention_bwd_plain(*args), 3)
     rows["rpe_attention_bwd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         # the embedding read once and its gradient written once (bf16), the
-        # rest fp32: q2 k2 v2 ghid dq dk dv (N, D), qwp gae dqwp (N, H, D), mask
-        bytes=2 * n * n * d * 2 + 4 * (7 * n * d + 3 * n * h * d + n),
+        # rest fp32: q2 k2 v2 ghid hidden dq dk dv (N, D), qwp gae ae dqwp
+        # (N, H, D), the two log-sum-exps (N, H), mask
+        bytes=2 * n * n * d * 2 + 4 * (8 * n * d + 4 * n * h * d + 2 * n * h + n),
         # forward recompute (scores) and the eight products of the backward
         flops=2.0 * n * n * d * (5 * h + 5))
 
@@ -613,6 +654,14 @@ def phase_training(rng):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the training path: {missing}")
+    # a train step: six RPE attention layers' backward, one OT forward and
+    # backward; the validation step one more OT forward
+    steps_val = trainer.step + cfg.val_max_iter
+    want = {"rpe_attention_bwd": 6 * trainer.step, "sinkhorn_bwd": trainer.step,
+            "sinkhorn": steps_val}
+    wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if wrong:
+        fail(f"training launches (counted, expected): {wrong}")
     return launches, trainer.step_times, peak
 
 

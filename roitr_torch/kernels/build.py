@@ -75,9 +75,11 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     return {name: _target(name).with_suffix(".log").read_text() for name in names}
 
 
-def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def function(name: str, symbol: str, argtypes: Sequence,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """C entry point `symbol` of source `name` (built first if needed),
-    declared to return the int cudaError_t of its launch."""
+    declared to return `restype`: by default the int cudaError_t of its
+    launch."""
     lib = _loaded.get(name)
     if lib is None:
         so = _target(name)
@@ -87,5 +89,5 @@ def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
         _loaded[name] = lib
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn

@@ -24,6 +24,12 @@ import torch
 from roitr_torch.kernels import check_cuda, check_launch, launch_counts, ptr, route, stream_ptr
 
 
+def supported_k(k: int) -> bool:
+    """Whether the forward kernel takes k angle neighbours: the argmax map
+    is int8 (mirrors csrc/geo_embedding.cu:816, `roitr_geo_embedding`)."""
+    return 1 <= k <= 127
+
+
 def div_term(hidden: int, device=None) -> torch.Tensor:
     """Frequencies exp(-2i log(1e4) / hidden) of the sinusoidal basis, fp32
     (reference positional_encoding.py:38-62)."""

@@ -17,6 +17,26 @@ import torch
 
 from roitr_torch.kernels import check_cuda, check_launch, launch_counts, ptr, route, stream_ptr
 
+# shared memory a block of the H100 can take (227 KB), which the C entry
+# points ask for with cudaFuncSetAttribute and are refused above
+_SMEM_BYTES = 232448
+
+
+def supported_shape(m1: int, n1: int) -> bool:
+    """Whether the forward kernel takes an (m1, n1) patch: its scores and
+    both potentials fit a block's shared memory (mirrors
+    csrc/sinkhorn.cu:267, `roitr_sinkhorn`)."""
+    return 4 * (m1 * n1 + 2 * m1 + 2 * n1) <= _SMEM_BYTES
+
+
+def supported_shape_bwd(m1: int, n1: int, num_iter: int) -> bool:
+    """Whether the backward kernel takes an (m1, n1) patch at num_iter
+    steps: scores, their cotangent, the u/v trajectory and five vectors fit
+    a block's shared memory (mirrors csrc/sinkhorn.cu:250-252,
+    `roitr_sinkhorn_bwd`)."""
+    return num_iter >= 1 and 4 * (2 * m1 * n1 + num_iter * (m1 + n1)
+                                  + 3 * (m1 + n1)) <= _SMEM_BYTES
+
 
 def _trajectory(padded, log_mu, log_nu, num_iter: int):
     """[(u_1, v_1), ..., (u_T, v_T)] of the loop (roitr_tpu/ops/sinkhorn.py:125-134)."""
@@ -112,22 +132,27 @@ def sinkhorn_bwd(padded, log_mu, log_nu, g, num_iter: int):
 
 
 class _Sinkhorn(torch.autograd.Function):
-    """Forward: sinkhorn_iterate; saves its inputs (roitr_tpu `_vjp_fwd`).
-    Backward: sinkhorn_bwd."""
+    """Forward: sinkhorn_iterate, or with kernel=False sinkhorn_plain; saves
+    its inputs (roitr_tpu `_vjp_fwd`). Backward: sinkhorn_bwd, or
+    sinkhorn_bwd_plain, which recomputes the trajectory as the kernel does
+    (the JAX package's checkpointed scan) instead of keeping every step."""
 
     @staticmethod
-    def forward(ctx, padded, log_mu, log_nu, num_iter):
+    def forward(ctx, padded, log_mu, log_nu, num_iter, kernel):
         ctx.num_iter = num_iter
+        ctx.kernel = kernel
         ctx.save_for_backward(padded, log_mu, log_nu)
-        return sinkhorn_iterate(padded, log_mu, log_nu, num_iter)
+        return (sinkhorn_iterate if kernel else sinkhorn_plain)(padded, log_mu, log_nu, num_iter)
 
     @staticmethod
     def backward(ctx, g):
         padded, log_mu, log_nu = ctx.saved_tensors
-        ds, dmu, dnu = sinkhorn_bwd(padded, log_mu, log_nu, g.contiguous(), ctx.num_iter)
-        return ds, dmu, dnu, None
+        bwd = sinkhorn_bwd if ctx.kernel else sinkhorn_bwd_plain
+        ds, dmu, dnu = bwd(padded, log_mu, log_nu, g.contiguous(), ctx.num_iter)
+        return ds, dmu, dnu, None, None
 
 
-def sinkhorn(padded, log_mu, log_nu, num_iter: int):
-    """Differentiable sinkhorn_iterate."""
-    return _Sinkhorn.apply(padded, log_mu, log_nu, num_iter)
+def sinkhorn(padded, log_mu, log_nu, num_iter: int, kernel: bool = True):
+    """Differentiable sinkhorn_iterate; kernel=False takes the plain loop
+    forward and backward, on whatever device the tensors are."""
+    return _Sinkhorn.apply(padded, log_mu, log_nu, num_iter, kernel)

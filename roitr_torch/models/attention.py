@@ -20,7 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from roitr_torch.kernels.rpe_attention_kernel import rpe_attention
+from roitr_torch.kernels.rpe_attention_kernel import (
+    rpe_attention,
+    rpe_attention_plain,
+    supported_heads,
+    supported_width,
+)
 from roitr_torch.models.embeddings import PPFEmbedding
 
 
@@ -121,7 +126,10 @@ class GlobalRPESelfAttention(nn.Module):
     relative position, also emitting learned positional states (reference
     RPEMultiHeadAttention, geoattention.py:69-193). The q . b_p score bias is
     constant along the key axis, hence softmax-invariant, and is dropped;
-    proj_p.bias stays a parameter so checkpoints load unchanged."""
+    proj_p.bias stays a parameter so checkpoints load unchanged. More heads
+    than the kernels take, or a width the backward does not (supported_heads,
+    supported_width), run the plain version, through autograd, as the JAX
+    package's XLA path does."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -146,8 +154,10 @@ class GlobalRPESelfAttention(nn.Module):
         qwp = torch.einsum("nhc,dhc->nhd", q2.reshape(n, h, c), wp_h).contiguous()
         fmask = (torch.ones(n, dtype=torch.float32, device=x.device) if key_mask is None
                  else key_mask.to(torch.float32))
-        hidden, ae = rpe_attention(q2.contiguous(), k2.contiguous(), v2.contiguous(), qwp,
-                                   embed.contiguous(), fmask.contiguous())
+        kernel = supported_heads(h) and supported_width(d)
+        attend = rpe_attention if kernel else rpe_attention_plain
+        hidden, ae = attend(q2.contiguous(), k2.contiguous(), v2.contiguous(), qwp,
+                            embed.contiguous(), fmask.contiguous())
         wvp_h = self.proj_vp.weight.t().reshape(d, h, c)
         pos = torch.einsum("nhd,dhc->nhc", ae, wvp_h) + self.proj_vp.bias.reshape(h, c)[None]
         return hidden, pos.reshape(n, d)

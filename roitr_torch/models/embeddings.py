@@ -11,7 +11,12 @@ import math
 import torch
 from torch import nn
 
-from roitr_torch.kernels.geo_embedding_kernel import geo_embedding, sinusoidal_basis
+from roitr_torch.kernels.geo_embedding_kernel import (
+    geo_embedding,
+    geo_embedding_plain,
+    sinusoidal_basis,
+    supported_k,
+)
 from roitr_torch.ops.geometry import masked_pairwise_sq_dist, pairwise_sq_dist, prefix_mask
 from roitr_torch.ops.topk import topk
 
@@ -46,6 +51,8 @@ class GeometricStructureEmbedding(nn.Module):
     the sin/cos basis, both projections and the max over the angle_k
     neighbors run as one kernel on the card (kernels/geo_embedding_kernel.py),
     which writes the storage dtype directly; its backward is another kernel.
+    More angle neighbours than the kernel takes (supported_k) run the
+    plain version, through autograd, as the JAX package's XLA path does.
     The indices get no gradient (reference: computed under no_grad).
     """
 
@@ -92,7 +99,8 @@ class GeometricStructureEmbedding(nn.Module):
         """points (N, 3) prefix-packed -> (N, N, hidden_dim) in out_dtype."""
         n = points.shape[0]
         d_indices, a_indices = self.indices(points, count)
-        out = geo_embedding(
+        embed = geo_embedding if supported_k(a_indices.shape[-1]) else geo_embedding_plain
+        out = embed(
             d_indices.reshape(-1).contiguous(),
             a_indices.reshape(n * n, -1).contiguous(),
             self.proj_d.weight.t(), self.proj_d.bias,

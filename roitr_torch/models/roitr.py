@@ -236,7 +236,7 @@ class RoITr(nn.Module):
         matching_scores = torch.einsum("pnc,pmc->pnm", tgt_knn_feats, src_knn_feats) / ch ** 0.5
         matching_scores = log_sinkhorn_ot(
             matching_scores, tgt_knn_masks, src_knn_masks, self.optimal_transport.alpha,
-            num_iter=cfg.sinkhorn_iters, tol=cfg.sinkhorn_tol)
+            num_iter=cfg.sinkhorn_iters, tol=cfg.sinkhorn_tol, differentiable=train)
         out["matching_scores"] = matching_scores
 
         # fine matching (reference :158-169), no gradient; the exact path in

@@ -3,7 +3,9 @@
 Counterpart of roitr_tpu/ops/sinkhorn.py (reference model/modules.py:10-72)
 with a fixed iteration count: the iterations run as one kernel launch on
 the card (kernels/sinkhorn_kernel.py), the plain loop on the CPU, and so
-does their reverse mode. Everything is fp32.
+does their reverse mode. As in the JAX package, a patch the kernels do
+not take (their shape gates) runs the plain loop on the card too.
+Everything is fp32.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import warnings
 
 import torch
 
-from roitr_torch.kernels.sinkhorn_kernel import sinkhorn
+from roitr_torch.kernels.sinkhorn_kernel import sinkhorn, supported_shape, supported_shape_bwd
 
 _INF = 1e6
 
@@ -50,18 +52,32 @@ def sinkhorn_inputs(scores: torch.Tensor, row_masks: torch.Tensor, col_masks: to
     return padded.contiguous(), log_mu.contiguous(), log_nu.contiguous(), norm
 
 
+def kernel_takes(m1: int, n1: int, num_iter: int, differentiable: bool) -> bool:
+    """Whether log_sinkhorn_ot runs the kernels on an (m1, n1) padded
+    patch: a differentiable call needs the backward's shape, any other the
+    forward's (roitr_tpu/ops/sinkhorn.py:80-93)."""
+    return supported_shape_bwd(m1, n1, num_iter) if differentiable else supported_shape(m1, n1)
+
+
 def log_sinkhorn_ot(scores: torch.Tensor, row_masks: torch.Tensor, col_masks: torch.Tensor,
-                    alpha: torch.Tensor, num_iter: int = 100, tol: float = 0.0) -> torch.Tensor:
+                    alpha: torch.Tensor, num_iter: int = 100, tol: float = 0.0,
+                    differentiable: bool = False) -> torch.Tensor:
     """scores (B, M, N), row_masks (B, M), col_masks (B, N), alpha (learnable
     dustbin score) -> log assignment matrix (B, M+1, N+1).
 
     The iterations run as the kernel on the card and as the plain loop on
     the CPU; differentiable in scores and alpha (alpha through the padded
     scores, as in JAX). The iteration count is fixed: tol > 0 is ignored
-    with a warning, as on the JAX package's kernel path.
+    with a warning, as on the JAX package's kernel path. `differentiable`
+    says a backward follows, so the patch must fit the backward kernel too
+    (kernel_takes); a patch the kernels do not take runs the plain loop,
+    forward and backward, on the card as well.
     """
     if tol > 0.0:
         warnings.warn("sinkhorn_tol > 0 has no effect: the port always runs the fixed "
                       "iteration count", stacklevel=2)
     padded, log_mu, log_nu, norm = sinkhorn_inputs(scores, row_masks, col_masks, alpha)
-    return sinkhorn(padded, log_mu, log_nu, num_iter) - norm[:, None, None]
+    _, m1, n1 = padded.shape
+    out = sinkhorn(padded, log_mu, log_nu, num_iter,
+                   kernel=kernel_takes(m1, n1, num_iter, differentiable))
+    return out - norm[:, None, None]

@@ -39,6 +39,7 @@ from roitr_torch.kernels.geo_embedding_kernel import (
 from roitr_torch.kernels.rpe_attention_kernel import (
     fused_rpe_self_attention,
     rpe_attention_bwd,
+    rpe_attention_bwd_onepass_plain,
     rpe_attention_bwd_plain,
     rpe_attention_plain,
 )
@@ -188,6 +189,12 @@ def test_sinkhorn_bwd_kernel(dev, p, m, n, iters):
     (20, 64, 16, torch.float32, 18),
     (9, 32, 4, torch.float32, 1),
     (512, 256, 4, torch.bfloat16, 480),   # the training shape
+    (1024, 256, 4, torch.bfloat16, 1000),
+    (777, 256, 4, torch.bfloat16, 777),   # ragged against the key tile
+    (512, 512, 4, torch.bfloat16, 480),   # 4DMatch width: two warps a key
+    (128, 256, 16, torch.bfloat16, 120),  # 16 heads at full width: four warps a key
+    (64, 512, 16, torch.float32, 60),     # a key across the whole block
+    (512, 256, 4, torch.bfloat16, 1),     # one valid key
 ])
 def test_rpe_attention_bwd_kernel(dev, n, d, h, dtype, valid):
     g = torch.Generator().manual_seed(n + 1)
@@ -201,6 +208,56 @@ def test_rpe_attention_bwd_kernel(dev, n, d, h, dtype, valid):
     got = _launched("rpe_attention_bwd", lambda: rpe_attention_bwd(*args))
     for name, a, b in zip(("dq", "dk", "dv", "dqwp", "demb"), got, ref):
         assert a.dtype == b.dtype, name
+        _close(a, b, frac=1 / 128 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("n,d,h,dtype,valid", [
+    (24, 32, 4, torch.float32, 20),
+    (512, 256, 4, torch.bfloat16, 480),
+    (9, 32, 4, torch.float32, 1),     # row 0's positional softmax is empty: +inf
+    (20, 64, 16, torch.bfloat16, 18),
+])
+def test_rpe_attention_kernel_lse(dev, n, d, h, dtype, valid):
+    """The forward's log-sum-exps against the plain ones (1e-4 of the
+    largest finite value; +inf exactly where no key is kept); hidden and ae
+    bit-equal with and without them."""
+    g = torch.Generator().manual_seed(n + 3)
+    q2, k2, v2 = (torch.randn(n, d, generator=g).to(dev) for _ in range(3))
+    qwp = (torch.randn(n, h, d, generator=g) * 0.3).to(dev)
+    embed = torch.randn(n, n, d, generator=g).to(dev, dtype)
+    mask = (torch.arange(n) < valid).float().to(dev)
+    args = (q2, k2, v2, qwp, embed, mask)
+    got = _launched("rpe_attention", lambda: fused_rpe_self_attention(*args, with_lse=True))
+    ref = rpe_attention_plain(*args, with_lse=True)
+    for a, b in zip(got[2:], ref[2:]):
+        assert torch.equal(torch.isposinf(a), torch.isposinf(b))
+        fin = torch.isfinite(b)
+        assert torch.isfinite(a[fin]).all()
+        _close(a[fin], b[fin])
+    plain_out = _launched("rpe_attention", lambda: fused_rpe_self_attention(*args))
+    for a, b in zip(plain_out, got[:2]):
+        assert torch.equal(a, b)
+
+
+def test_rpe_attention_bwd_kernel_repeat_and_onepass(dev):
+    """At the training shape: two launches give bit-equal gradients (no
+    atomics), and the kernel agrees with its CPU emulation's algorithm
+    (rpe_attention_bwd_onepass_plain) as with the two-pass plain version."""
+    n, d, h = 512, 256, 4
+    g = torch.Generator().manual_seed(11)
+    q2, k2, v2, ghid = (torch.randn(n, d, generator=g).to(dev) for _ in range(4))
+    qwp = (torch.randn(n, h, d, generator=g) * 0.3).to(dev)
+    gae = torch.randn(n, h, d, generator=g).to(dev)
+    embed = torch.randn(n, n, d, generator=g).to(dev, torch.bfloat16)
+    mask = (torch.arange(n) < 470).float().to(dev)
+    fwd = fused_rpe_self_attention(q2, k2, v2, qwp, embed, mask, with_lse=True)
+    args = (q2, k2, v2, qwp, embed, mask, ghid, gae, *fwd)
+    got = _launched("rpe_attention_bwd", lambda: rpe_attention_bwd(*args))
+    again = _launched("rpe_attention_bwd", lambda: rpe_attention_bwd(*args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    emu = rpe_attention_bwd_onepass_plain(*args)
+    for a, b in zip(got, emu):
         _close(a, b, frac=1 / 128 if a.dtype == torch.bfloat16 else 1e-4)
 
 
@@ -373,3 +430,88 @@ def test_train_step_on_card(dev):
     assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
     assert metrics["grads_finite"] == 1.0 and np.isfinite(metrics["loss"])
     assert any(not torch.equal(v, before[k]) for k, v in model.state_dict().items())
+
+
+def _grad_step(model, pair):
+    from roitr_torch.losses import overall_loss
+
+    model.zero_grad(set_to_none=True)
+    out = model(pair, train=True, with_gt=True, generator=torch.Generator().manual_seed(0))
+    losses = overall_loss(model.cfg, out, pair.rot, pair.trans)
+    losses["loss"].backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().double()
+             for k, p in model.named_parameters()}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+@pytest.mark.parametrize("ppp,iters", [(128, 100), (64, 400)])
+def test_train_step_beyond_the_sinkhorn_kernels(dev, ppp, iters):
+    """Patches (point_per_patch 128) or trajectories (400 iterations) that
+    the Sinkhorn backward kernel does not take: the train step runs the
+    plain loop on the card, launches neither Sinkhorn kernel, every other
+    kernel as before, and agrees with the CPU step (losses 1e-3 relative,
+    gradients: cosine >= 0.9999 over all, each parameter within 1e-2 of
+    max(|CPU|, 1e-3 of the largest), as chip_smoke.py holds the 4096 step)."""
+    from torch_parity import pair_arrays, torch_pair
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.ops.sinkhorn import kernel_takes
+
+    cfg = _tiny_cfg().replace(num_gt_coarse_corr=32, point_per_patch=ppp, sinkhorn_iters=iters,
+                              geo_embedding_storage="fp32")
+    assert not kernel_takes(ppp + 1, ppp + 1, iters, differentiable=True)
+    arr = pair_arrays(4, 512, 480, 400)
+    kernels.reset_launch_counts()
+    lg, gg = _grad_step(RoITr(cfg, device=dev, seed=0), torch_pair(arr, dev))
+    torch.cuda.synchronize()
+    launched = dict(kernels.launch_counts)
+    assert launched["sinkhorn"] == launched["sinkhorn_bwd"] == 0, launched
+    assert all(v > 0 for k, v in launched.items() if not k.startswith("sinkhorn")), launched
+    lc, gc = _grad_step(RoITr(cfg, device="cpu", seed=0), torch_pair(arr))
+    for k in lc:
+        assert abs(lg[k] - lc[k]) <= 1e-3 * max(abs(lc[k]), 1e-6), (k, lg[k], lc[k])
+    norms = {k: float(v.norm()) for k, v in gc.items()}
+    floor = 1e-3 * max(norms.values())
+    for k in gc:
+        assert torch.isfinite(gg[k]).all(), k
+        assert float((gg[k] - gc[k]).norm()) <= 1e-2 * max(norms[k], floor), k
+    fg = torch.cat([v.flatten() for v in gg.values()])
+    fc = torch.cat([v.flatten() for v in gc.values()])
+    assert float(fg @ fc / (fg.norm() * fc.norm())) >= 0.9999
+
+
+def test_model_layers_beyond_the_kernels_take_the_plain_path(dev):
+    """17 heads, and 128 angle neighbours: the layers run the plain versions
+    on the card (no launch). The attention layer agrees with the CPU,
+    gradients included (1e-4 of the largest value; for the gradients, of
+    the largest over all the layer's parameters, since some are zero up to
+    rounding: the key bias's, by softmax invariance); the embedding off the
+    diagonal (there the x^2 - 2xy + y^2 distance of a point to itself is
+    rounding noise, whose square root differs between the two devices), and
+    its weights' gradients are finite."""
+    from roitr_torch.models.attention import GlobalRPESelfAttention
+    from roitr_torch.models.embeddings import GeometricStructureEmbedding
+
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(40, 34).astype(np.float32))
+    e = torch.from_numpy(rng.randn(40, 40, 34).astype(np.float32))
+    pts = torch.from_numpy(rng.rand(130, 3).astype(np.float32))
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        torch.manual_seed(0)
+        att = GlobalRPESelfAttention(34, 17).to(device)
+        torch.manual_seed(1)
+        geo = GeometricStructureEmbedding(8, angle_k=128).to(device)
+        before = dict(kernels.launch_counts)
+        hidden, pos = att(x.to(device), e.to(device))
+        emb = geo(pts.to(device))
+        (hidden.sum() + (pos ** 2).sum() + (emb ** 2).sum()).backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts == before
+        off_diagonal = ~torch.eye(130, dtype=torch.bool, device=device)
+        grads = torch.cat([p.grad.flatten() for p in att.parameters() if p.grad is not None])
+        results[device.type] = [t.detach().cpu() for t in (hidden, pos, emb[off_diagonal],
+                                                           grads)]
+        assert all(torch.isfinite(p.grad).all() and p.grad.any() for p in geo.parameters())
+    for a, b in zip(results["cuda"], results["cpu"]):
+        _close(a, b)

@@ -36,8 +36,14 @@ from roitr_torch.parallel.train_step import make_optimizer, train_step  # noqa: 
 
 from torch_profile_serving import card_line  # noqa: E402
 
-OUR_KERNELS = ("fps_kernel", "geo_embedding_kernel", "geo_embedding_bwd", "rpe_attention_kernel",
-               "rpe_attention_bwd", "sinkhorn_kernel", "sinkhorn_bwd_kernel")
+# each port kernel's device functions, by the names' substrings: the RPE
+# backward is its row kernel and the products before and after it
+OUR_KERNELS = {
+    "fps_kernel": ("fps_kernel",), "geo_embedding_kernel": ("geo_embedding_kernel",),
+    "geo_embedding_bwd": ("geo_embedding_bwd",), "rpe_attention_kernel": ("rpe_attention_kernel",),
+    "rpe_attention_bwd": ("rpe_attention_bwd", "rpe_products", "rpe_sum_splits"),
+    "sinkhorn_kernel": ("sinkhorn_kernel",), "sinkhorn_bwd_kernel": ("sinkhorn_bwd_kernel",),
+}
 
 
 def main() -> int:
@@ -92,11 +98,11 @@ def main() -> int:
                    and str(e.device_type).endswith("CUDA")]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         ours = sum(e.self_device_time_total for e in kernels
-                   if any(s in e.key for s in OUR_KERNELS)) / 1e3
+                   if any(s in e.key for subs in OUR_KERNELS.values() for s in subs)) / 1e3
         print(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
               f"({busy / wall_ms:.1%}), of which the port's seven kernels {ours:.1f} ms; {card}")
-        for name in OUR_KERNELS:
-            mine = [e for e in kernels if name in e.key]
+        for name, subs in OUR_KERNELS.items():
+            mine = [e for e in kernels if any(s in e.key for s in subs)]
             print(f"[profile] port kernel {name}: "
                   f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms in "
                   f"{sum(e.count for e in mine)} calls")
