@@ -3,15 +3,21 @@
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-  1. device    name, count and power limit of the card (fails without one)
+  1. device    name, count, power limit and top SM clock of the card (fails
+               without one); the clock and SM count give the special-function
+               units' rate of exps and logs, a third term of the bounds
   2. build     nvcc of every kernel in roitr_torch/csrc/, with ptxas's report
                (the tensor-core geometric embedding's forward and backward:
                registers, spills and resident blocks an SM apart; the RPE
-               attention's kernels: registers, spills, shared memory)
+               attention's kernels: registers, spills, shared memory; the
+               Sinkhorn kernels: registers, spills, shared memory, and the
+               line kernels' resident blocks an SM)
   3. kernels   each kernel, forward and backward, against its plain PyTorch
                version on the card at the 32768-point bucket's shapes (FPS
                exact, the others within stated tolerances), timed with CUDA
-               events
+               events; Sinkhorn's forward also with its trajectory output
+               and against a float64 loop, its backward from that
+               trajectory (training's) and making its own
   4. forward   one seeded pair at the 4096 bucket through RoITr on the card
                (kernels) and on the CPU (plain versions), same weights
   5. serving   Matcher.match at full 3DMatch width on three synthetic pairs
@@ -48,6 +54,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+# exps and logs (MUFU.EX2, MUFU.LG2) a clock an SM on the special-function
+# units; their rate a second, SFU_PER_S, is set from the card's SM count and
+# top SM clock by phase_device
+SFU_PER_CLOCK_SM = 16
+SFU_PER_S = 0.0
 
 
 def fail(msg: str) -> None:
@@ -69,12 +80,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOP_PER_S):
-    """(ms, "bytes" or "operations"): the larger of the bytes over HBM's rate
-    and the operations over `peak` FLOP/s."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOP_PER_S, sfu: float = 0.0):
+    """(ms, "bytes", "operations" or "sfu"): the largest of the bytes over
+    HBM's rate, the operations over `peak` FLOP/s and the exps and logs
+    (`sfu`) over the special-function units' rate."""
+    times = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3, "operations": flops / peak * 1e3,
+             "sfu": sfu / SFU_PER_S * 1e3 if sfu else 0.0}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def phase_device():
@@ -85,9 +98,19 @@ def phase_device():
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+    if clock.returncode != 0:
+        fail(f"nvidia-smi failed: {clock.stderr.strip()}")
+    mhz = float(clock.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    global SFU_PER_S
+    SFU_PER_S = SFU_PER_CLOCK_SM * sms * mhz * 1e6
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-          f"nvidia-smi: {smi_line}; torch {torch.__version__} cuda {torch.version.cuda}",
-          flush=True)
+          f"nvidia-smi: {smi_line}, max SM clock {mhz:g} MHz, {sms} SMs: "
+          f"{SFU_PER_S:.4g} exps a second on the SFUs; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi_line
@@ -127,7 +150,12 @@ def phase_build():
             return f"rpe_attention_kernel<{dtype} e, H <= {heads}>"
         return None
 
-    for source, name_of in (("geo_embedding", label), ("rpe_attention", rpe_label)):
+    def sinkhorn_label(mangled):
+        return next((k for k in ("sinkhorn_lines_fwd", "sinkhorn_lines_bwd", "sinkhorn_bwd_kernel",
+                                 "sinkhorn_kernel") if k in mangled), None)
+
+    for source, name_of in (("geo_embedding", label), ("rpe_attention", rpe_label),
+                            ("sinkhorn", sinkhorn_label)):
         current = None
         for line in reports[source].splitlines():
             if "Compiling entry function" in line:
@@ -144,6 +172,18 @@ def phase_build():
         if fn(arg, ctypes.byref(blocks)) != 0:
             fail(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed for {name}")
         print(f"[build] {name}: {blocks.value} resident block(s) of 256 threads an SM")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, name in ((0, "sinkhorn_lines_fwd"), (1, "sinkhorn_lines_fwd with the trajectory"),
+                        (2, "sinkhorn_lines_bwd")):
+        blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+        fn = function("sinkhorn", "roitr_sinkhorn_lines_blocks_per_sm",
+                      [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        if fn(which, ctypes.byref(blocks), ctypes.byref(threads)) != 0:
+            fail(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed for {name}")
+        per_sm = {p: min(blocks.value, -(-p // sms)) for p in (256, 128)}
+        print(f"[build] {name}: {blocks.value} resident block(s) of {threads.value} threads an "
+              f"SM; patches an SM at most: {per_sm[256]} at P 256, {per_sm[128]} at P 128 "
+              f"({sms} SMs)")
     smem = function("rpe_attention", "roitr_rpe_attention_bwd_smem_bytes", [ctypes.c_int] * 3,
                     ctypes.c_longlong)
     print(f"[build] rpe_attention_bwd_rows dynamic shared memory a block (any N): "
@@ -170,8 +210,10 @@ def phase_kernels(rng):
         rpe_attention_plain,
     )
     from roitr_torch.kernels.sinkhorn_kernel import (
+        sinkhorn_base2_plain,
         sinkhorn_bwd,
         sinkhorn_bwd_plain,
+        sinkhorn_bwd_split_plain,
         sinkhorn_iterate,
         sinkhorn_plain,
     )
@@ -369,31 +411,45 @@ def phase_kernels(rng):
         # forward recompute (scores) and the eight products of the backward
         flops=2.0 * n * n * d * (5 * h + 5))
 
-    # ---- Sinkhorn: (256, 65, 65) x 100
-    p, kk = 256, 64
+    # ---- Sinkhorn: (256, 65, 65) x 100, the serving shape (the line kernel)
+    p, kk, iters = 256, 64, 100
     scores = torch.randn(p, kk, kk, generator=gen).to(dev)
     rmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
     cmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
     padded, log_mu, log_nu, _ = sinkhorn_inputs(scores, rmask, cmask,
                                                 torch.tensor(1.0, device=dev))
-    out = sinkhorn_iterate(padded, log_mu, log_nu, 100)
-    ref = sinkhorn_plain(padded, log_mu, log_nu, 100)
+    out = sinkhorn_iterate(padded, log_mu, log_nu, iters)
+    ref = sinkhorn_plain(padded, log_mu, log_nu, iters)
     valid = ref > -1e5
     err = float((out - ref)[valid].abs().max())
-    print(f"[kernels] sinkhorn ({p}, {kk + 1}, {kk + 1}) x 100: max abs err {err:.3g} on "
+    print(f"[kernels] sinkhorn ({p}, {kk + 1}, {kk + 1}) x {iters}: max abs err {err:.3g} on "
           f"valid entries (tol 1e-4)", flush=True)
     if not err <= 1e-4:
         fail("sinkhorn kernel outside tolerance")
-    ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, 100), 10)
-    plain_ms = cuda_ms(lambda: sinkhorn_plain(padded, log_mu, log_nu, 100), 2)
+    ref64 = sinkhorn_plain(padded.double(), log_mu.double(), log_nu.double(), iters)
+    emu = sinkhorn_base2_plain(padded, log_mu, log_nu, iters)
+    print(f"[kernels] sinkhorn against a float64 loop, max abs err on valid entries: kernel "
+          f"{float((out.double() - ref64)[valid].abs().max()):.3g}, fp32 plain loop "
+          f"{float((ref.double() - ref64)[valid].abs().max()):.3g}, its base-2 emulation "
+          f"{float((emu.double() - ref64)[valid].abs().max()):.3g}", flush=True)
+    ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, iters), 20)
+    plain_ms = cuda_ms(lambda: sinkhorn_plain(padded, log_mu, log_nu, iters), 2)
     m1 = kk + 1
-    # per iteration and entry: 2 half-steps x (add, sub, exp, add, max)
-    rows["sinkhorn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bytes=4 * (2 * p * m1 * m1 + 2 * p * m1),
-                            flops=100 * 2 * 5.0 * p * m1 * m1)
+    # per iteration, entry and half-step: add, max, sub, add on the CUDA
+    # cores and one exp on the SFUs; one log a line and half-step
+    ops, sfu = 2 * 4.0 * p * m1 * m1 * iters, 2.0 * p * m1 * iters * (m1 + 1)
+    byt = 4 * (2 * p * m1 * m1 + 2 * p * m1)
+    b_ms, b_by = bound(byt, ops, sfu=sfu)
+    print(f"[kernels] sinkhorn bound: {sfu:.4g} exps and logs, {b_ms:.4f} ms ({b_by}); fp32 "
+          f"{ops / FP32_FLOP_PER_S * 1e3:.4f} ms, bytes {byt / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          f"kernel {ms:.4f} ms", flush=True)
+    rows["sinkhorn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=byt, flops=ops,
+                            sfu=sfu)
 
-    # ---- Sinkhorn backward at the training shape: (128, 65, 65) x 100, a
-    # cotangent on valid entries only (the fine loss reads nothing else)
+    # ---- at the training shape, (128, 65, 65) x 100: the forward with and
+    # without the trajectory; the backward from it (training's) and making
+    # its own (sinkhorn_bwd without one); a cotangent on valid entries only
+    # (the fine loss reads nothing else)
     p = 128
     scores = torch.randn(p, kk, kk, generator=gen).to(dev)
     rmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
@@ -401,32 +457,68 @@ def phase_kernels(rng):
     padded, log_mu, log_nu, _ = sinkhorn_inputs(scores, rmask, cmask,
                                                 torch.tensor(1.0, device=dev))
     g = torch.randn(padded.shape, generator=gen).to(dev) * (padded > -1e5)
-    got = sinkhorn_bwd(padded, log_mu, log_nu, g, 100)
-    ref = sinkhorn_bwd_plain(padded, log_mu, log_nu, g, 100)
+    out, traj_u, traj_v = sinkhorn_iterate(padded, log_mu, log_nu, iters, with_traj=True)
+    traj = (traj_u, traj_v)
+    ref_traj = sinkhorn_plain(padded, log_mu, log_nu, iters, with_traj=True)
+    same = torch.equal(out, sinkhorn_iterate(padded, log_mu, log_nu, iters))
+    rows_ok, cols_ok = log_mu > -1e5, log_nu > -1e5
+    traj_err = max(float((traj_u - ref_traj[1]).abs().amax(dim=1)[rows_ok].max()),
+                   float((traj_v - ref_traj[2]).abs().amax(dim=1)[cols_ok].max()))
+    fwd_ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, iters), 20)
+    traj_ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, iters, with_traj=True), 20)
+    print(f"[kernels] sinkhorn ({p}, {m1}, {m1}) x {iters}: trajectory max abs err {traj_err:.3g} "
+          f"on valid rows and columns (tol 1e-4); output bit-equal without it: {same}; "
+          f"{fwd_ms:.4f} ms without the trajectory (validation), {traj_ms:.4f} ms with it "
+          f"(training)", flush=True)
+    if not (traj_err <= 1e-4 and same):
+        fail("sinkhorn kernel's trajectory outside tolerance")
+    got = sinkhorn_bwd(padded, log_mu, log_nu, g, iters, traj=traj)
+    made = sinkhorn_bwd(padded, log_mu, log_nu, g, iters)
+    ref = sinkhorn_bwd_plain(padded, log_mu, log_nu, g, iters)
+    emu = sinkhorn_bwd_split_plain(padded, log_mu, log_nu, g, iters, traj=traj)
     err = 0.0
     # ds within 1e-4 of its largest value; dmu / dnu, the marginals'
     # cotangents summed over all 100 reverse steps, within 1e-3: there the
     # fp32 plain loop itself is about 1e-4 off the float64 loop printed below
     for name, a, b, frac in zip(("ds", "dmu", "dnu"), got, ref, (1e-4, 1e-3, 1e-3)):
         e, top = float((a - b).abs().max()), float(b.abs().max())
-        print(f"[kernels] sinkhorn_bwd ({p}, {m1}, {m1}) x 100 {name}: max abs err {e:.3g} "
+        print(f"[kernels] sinkhorn_bwd ({p}, {m1}, {m1}) x {iters} {name}: max abs err {e:.3g} "
               f"(tol {frac:g} * max|ref| = {frac * top:.3g})", flush=True)
         if not e <= frac * top:
             fail(f"sinkhorn_bwd kernel outside tolerance in {name}")
         err = max(err, e)
-    ref64 = sinkhorn_bwd_plain(padded.double(), log_mu.double(), log_nu.double(), g.double(), 100)
+    same = all(torch.equal(a, b) for a, b in zip(got, made))
+    print(f"[kernels] sinkhorn_bwd making its own trajectory: bit-equal to the one from the "
+          f"forward's: {same}; kernel vs its split-sum emulation (same trajectory), max abs "
+          f"err {max(float((a - b).abs().max()) for a, b in zip(got, emu)):.3g}", flush=True)
+    if not same:
+        fail("sinkhorn_bwd differs with and without a given trajectory")
+    ref64 = sinkhorn_bwd_plain(padded.double(), log_mu.double(), log_nu.double(), g.double(),
+                               iters)
     for name, a, b, c in zip(("ds", "dmu", "dnu"), got, ref, ref64):
         top = float(c.abs().max())
         print(f"[kernels] sinkhorn_bwd {name} against a float64 loop, max abs err / max|ref|: "
               f"kernel {float((a.double() - c).abs().max()) / top:.3g}, fp32 plain loop "
               f"{float((b.double() - c).abs().max()) / top:.3g}", flush=True)
-    ms = cuda_ms(lambda: sinkhorn_bwd(padded, log_mu, log_nu, g, 100), 10)
-    plain_ms = cuda_ms(lambda: sinkhorn_bwd_plain(padded, log_mu, log_nu, g, 100), 2)
-    # per iteration and entry: recompute 2 x 5 operations, reverse 2 x 7
-    # (add, sub, add, exp, mul, sub, add)
+    ms = cuda_ms(lambda: sinkhorn_bwd(padded, log_mu, log_nu, g, iters, traj=traj), 20)
+    made_ms = cuda_ms(lambda: sinkhorn_bwd(padded, log_mu, log_nu, g, iters), 20)
+    plain_ms = cuda_ms(lambda: sinkhorn_bwd_plain(padded, log_mu, log_nu, g, iters, traj), 2)
+    # from the trajectory, per iteration, entry and half-step: two adds and
+    # two fmas on the CUDA cores, one exp on the SFUs; the trajectory read
+    # once. As the TPU kernel does it, the forward's work first (no
+    # trajectory read)
+    ops, sfu = 2 * 6.0 * p * m1 * m1 * iters, 2.0 * p * m1 * m1 * iters
+    byt = 4 * (3 * p * m1 * m1 + 4 * p * m1)
+    traj_bytes = 4 * p * iters * 2 * m1
+    b_ms, b_by = bound(byt + traj_bytes, ops, sfu=sfu)
+    tpu_ms, tpu_by = bound(byt, ops + 2 * 4.0 * p * m1 * m1 * iters,
+                           sfu=2 * sfu + 2.0 * p * m1 * iters * (m1 + 1))
+    print(f"[kernels] sinkhorn_bwd bound from the trajectory: {sfu:.4g} exps, "
+          f"{traj_bytes / 1e6:.2f} MB of trajectory read, {b_ms:.4f} ms ({b_by}); as the TPU "
+          f"kernel does it (recompute, then reverse) {tpu_ms:.4f} ms ({tpu_by}); kernel "
+          f"{ms:.4f} ms from the trajectory, {made_ms:.4f} ms making its own", flush=True)
     rows["sinkhorn_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bytes=4 * (3 * p * m1 * m1 + 4 * p * m1),
-                                flops=100 * (2 * 5.0 + 2 * 7.0) * p * m1 * m1)
+                                bytes=byt + traj_bytes, flops=ops, sfu=sfu)
     return rows
 
 
@@ -697,12 +789,15 @@ def main() -> int:
 
     kernels = []
     for name, row in rows.items():
-        bound_ms, bound_by = bound(row["bytes"], row["flops"], row.get("peak", FP32_FLOP_PER_S))
+        bound_ms, bound_by = bound(row["bytes"], row["flops"], row.get("peak", FP32_FLOP_PER_S),
+                                   row.get("sfu", 0.0))
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            # exps and logs on the special-function units are operations
+            "bound_by": "bytes" if bound_by == "bytes" else "operations",
             "library_ms": None,
         })
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)

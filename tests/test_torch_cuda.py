@@ -515,3 +515,80 @@ def test_model_layers_beyond_the_kernels_take_the_plain_path(dev):
         assert all(torch.isfinite(p.grad).all() and p.grad.any() for p in geo.parameters())
     for a, b in zip(results["cuda"], results["cpu"]):
         _close(a, b)
+
+
+# ---- the Sinkhorn line kernels (rows and columns of at most 65) and the
+# general ones past them: the trajectory the forward writes under
+# differentiation, and the backward that reads it
+
+def _sinkhorn_patches(dev, p, m, n, seed):
+    """Scores, masks with a fully masked last patch slot, and a cotangent on
+    valid entries, as test_sinkhorn_bwd_kernel makes them."""
+    g = torch.Generator().manual_seed(seed)
+    scores = torch.randn(p, m, n, generator=g).to(dev)
+    rm = (torch.rand(p, m, generator=g) > 0.2).to(dev)
+    cm = (torch.rand(p, n, generator=g) > 0.2).to(dev)
+    rm[:, 0] = cm[:, 0] = True
+    rm[-1] = False
+    padded, mu, nu, _ = sinkhorn_inputs(scores, rm, cm, torch.tensor(1.3, device=dev))
+    cot = torch.randn(padded.shape, generator=g).to(dev) * (padded > -1e5)
+    return padded, mu, nu, cot
+
+
+@pytest.mark.parametrize("p,m,n,iters", [(5, 11, 9, 20), (128, 64, 64, 100), (3, 1, 1, 10),
+                                         (4, 80, 70, 20), (3, 50, 100, 15)])
+def test_sinkhorn_trajectory_and_the_backward_from_it(dev, p, m, n, iters):
+    """The forward's output does not change when it also writes the
+    trajectory, which agrees with `_trajectory` on valid rows and columns
+    within 1e-4; the backward from it agrees with the plain version (ds
+    1e-4, dmu / dnu 1e-3 of the largest value) and equals, bit for bit, the
+    backward that writes its own trajectory first, and itself when run
+    again. (4, 80, 70) and (3, 50, 100) have lines past 65: the general
+    kernels, still on the card."""
+    from roitr_torch.kernels.sinkhorn_kernel import _trajectory, line_kernel_takes
+
+    padded, mu, nu, cot = _sinkhorn_patches(dev, p, m, n, p + m)
+    assert line_kernel_takes(m + 1, n + 1) == (max(m, n) < 65)
+    out = _launched("sinkhorn", lambda: sinkhorn_iterate(padded, mu, nu, iters))
+    out2, traj_u, traj_v = _launched(
+        "sinkhorn", lambda: sinkhorn_iterate(padded, mu, nu, iters, with_traj=True))
+    assert torch.equal(out, out2)
+    assert traj_u.shape == (p, iters, m + 1) and traj_v.shape == (p, iters, n + 1)
+    rows, cols = mu > -1e5, nu > -1e5
+    for t, (u, v) in enumerate(_trajectory(padded, mu, nu, iters)):
+        assert float((traj_u[:, t] - u)[rows].abs().max()) <= 1e-4, t
+        assert float((traj_v[:, t] - v)[cols].abs().max()) <= 1e-4, t
+    ref = sinkhorn_bwd_plain(padded, mu, nu, cot, iters)
+    got = _launched("sinkhorn_bwd",
+                    lambda: sinkhorn_bwd(padded, mu, nu, cot, iters, traj=(traj_u, traj_v)))
+    for name, a, b in zip(("ds", "dmu", "dnu"), got, ref):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, frac=1e-4 if name == "ds" else 1e-3)
+    made = _launched("sinkhorn_bwd", lambda: sinkhorn_bwd(padded, mu, nu, cot, iters))
+    again = _launched("sinkhorn_bwd",
+                      lambda: sinkhorn_bwd(padded, mu, nu, cot, iters, traj=(traj_u, traj_v)))
+    for a, b, c in zip(got, made, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(out, _launched("sinkhorn", lambda: sinkhorn_iterate(padded, mu, nu, iters)))
+
+
+def test_sinkhorn_function_hands_its_trajectory_to_the_backward(dev):
+    """Under differentiation the OT runs one forward launch (writing the
+    trajectory) and one backward launch (reading it), and its gradients
+    agree with the plain loop's on the card (1e-4 of the largest value);
+    under no_grad it runs one forward launch and keeps no graph."""
+    from roitr_torch.kernels.sinkhorn_kernel import sinkhorn
+
+    padded, mu, nu, cot = _sinkhorn_patches(dev, 16, 64, 64, 7)
+    before = dict(kernels.launch_counts)
+    s = padded.clone().requires_grad_(True)
+    (sinkhorn(s, mu, nu, 100) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["sinkhorn"] == before["sinkhorn"] + 1
+    assert kernels.launch_counts["sinkhorn_bwd"] == before["sinkhorn_bwd"] + 1
+    ref = padded.clone().requires_grad_(True)
+    (sinkhorn(ref, mu, nu, 100, kernel=False) * cot).sum().backward()
+    _close(s.grad, ref.grad)
+    with torch.no_grad():
+        out = _launched("sinkhorn", lambda: sinkhorn(s, mu, nu, 100))
+    assert out.grad_fn is None

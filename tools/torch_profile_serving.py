@@ -172,7 +172,8 @@ def main() -> int:
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         ours = sum(e.self_device_time_total for e in kernels
                    if any(s in e.key for s in ("fps_kernel", "geo_embedding_kernel",
-                                               "rpe_attention_kernel", "sinkhorn_kernel"))) / 1e3
+                                               "rpe_attention_kernel", "sinkhorn_lines_fwd",
+                                               "sinkhorn_kernel"))) / 1e3
         print(f"[profile] one request (stages timed, so host waits included): wall "
               f"{wall_ms:.1f} ms, device busy {busy:.1f} ms ({busy / wall_ms:.1%}), of which the "
               f"port's four kernels {ours:.1f} ms; {card}")

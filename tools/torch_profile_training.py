@@ -37,12 +37,14 @@ from roitr_torch.parallel.train_step import make_optimizer, train_step  # noqa: 
 from torch_profile_serving import card_line  # noqa: E402
 
 # each port kernel's device functions, by the names' substrings: the RPE
-# backward is its row kernel and the products before and after it
+# backward is its row kernel and the products before and after it; each
+# Sinkhorn row its line kernel (the main path's) and its general kernel
 OUR_KERNELS = {
     "fps_kernel": ("fps_kernel",), "geo_embedding_kernel": ("geo_embedding_kernel",),
     "geo_embedding_bwd": ("geo_embedding_bwd",), "rpe_attention_kernel": ("rpe_attention_kernel",),
     "rpe_attention_bwd": ("rpe_attention_bwd", "rpe_products", "rpe_sum_splits"),
-    "sinkhorn_kernel": ("sinkhorn_kernel",), "sinkhorn_bwd_kernel": ("sinkhorn_bwd_kernel",),
+    "sinkhorn_kernel": ("sinkhorn_lines_fwd", "sinkhorn_kernel"),
+    "sinkhorn_bwd_kernel": ("sinkhorn_lines_bwd", "sinkhorn_bwd_kernel"),
 }
 
 
