@@ -24,10 +24,21 @@ Phases, each of which exits non-zero on failure:
                of 20k-30k points (bucket 32768); launch counters are zeroed
                just before and read just after, and every forward kernel
                must have run
-  6. train parity  one train step's forward, losses and backward at the
+  6. tester    the Tester (get_trainer) at full 3DMatch width from
+               configs/test/tdmatch.yaml (host_pyramid and knn_method
+               overridden) on a test split in the reference layout: three
+               synthetic pairs of 20k-30k points as .pth fragments and an
+               info pickle in a temporary directory; host prep with full
+               dumps, device prep with full dumps and with c2f dumps, counters
+               zeroed before each run and every forward kernel required; the
+               dumps' keys and ragged shapes, c2f against full, device prep
+               against host prep (node descriptors), the compaction on the
+               card with every correspondence kept, device normals against
+               host normals; s/pair, device normals' ms and peak memory
+  7. train parity  one train step's forward, losses and backward at the
                4096 bucket on the card and on the CPU, same weights and
                Gumbel noise: losses and every parameter's gradient compared
-  7. training  Trainer at full 3DMatch width (configs/train/tdmatch.yaml)
+  8. training  Trainer at full 3DMatch width (configs/train/tdmatch.yaml)
                for 3 train steps and 1 validation step on synthetic pairs of
                20k-30k points (bucket 32768), in a temporary directory;
                counters zeroed before and read after, and all seven kernels
@@ -634,6 +645,179 @@ def phase_serving(cfg, state_dict, rng):
     return launches
 
 
+# the keys of a dump of the JAX package's Tester (roitr_tpu/eval/tester.py
+# trim_outputs), in both dump modes
+DUMP_FILE_KEYS = {"src_raw_pcd", "src_pcd", "tgt_pcd", "src_nodes", "tgt_nodes", "src_node_desc",
+                  "tgt_node_desc", "src_point_desc", "tgt_point_desc", "src_corr_pts",
+                  "tgt_corr_pts", "confidence", "gt_tgt_node_occ", "gt_src_node_occ", "rot",
+                  "trans"}
+
+
+def phase_tester(rng):
+    """The Tester at full 3DMatch width from configs/test/tdmatch.yaml on a
+    test split in the reference layout (three synthetic pairs of 20k-30k
+    points, `.pth` fragments and an info pickle, in a temporary directory):
+    host prep with full dumps, device prep with full dumps, device prep with
+    c2f dumps; counters zeroed before each run and read after it."""
+    import pickle
+
+    from roitr_torch.config import load_config
+    from roitr_torch.data import get_dataset
+    from roitr_torch.data.loader import dict_to_pair
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.eval import get_trainer
+    from roitr_torch.eval.tester import compact_corr
+    from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.ops.normals import estimate_normals
+    from roitr_torch.ops.pyramid import device_prep_pair
+
+    sizes = [(29000, 25500), (24000, 27500), (26500, 21000)]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            infos = {"rot": [], "trans": [], "src": [], "tgt": [], "overlap": []}
+            for i, (n, m) in enumerate(sizes):
+                arr = make_pair_arrays(rng, 32768, n, m)
+                scene = f"test/scene{i}"
+                os.makedirs(os.path.join("indoor", scene))
+                for j, cloud in ((2 * i, arr["src_points"][:n]), (2 * i + 1, arr["tgt_points"][:m])):
+                    torch.save(torch.from_numpy(cloud.copy()),
+                               os.path.join("indoor", scene, f"cloud_bin_{j}.pth"))
+                infos["src"].append(f"{scene}/cloud_bin_{2 * i}.pth")
+                infos["tgt"].append(f"{scene}/cloud_bin_{2 * i + 1}.pth")
+                infos["rot"].append(arr["rot"])
+                infos["trans"].append(arr["trans"])
+                infos["overlap"].append(0.7)
+            with open("test_split.pkl", "wb") as f:
+                pickle.dump(infos, f)
+            yaml_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                     "test", "tdmatch.yaml")
+            overrides = dict(root=os.path.join(tmp, "indoor"),
+                             test_info=os.path.join(tmp, "test_split.pkl"),
+                             pretrain=os.path.join(tmp, "weights.pth"),
+                             host_pyramid=False, knn_method="exact")
+            print(f"[tester] {yaml_path} with overrides {overrides}", flush=True)
+            cfg = load_config(yaml_path, **overrides)
+            torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
+
+            runs = {}
+            for name, kw in (("host_full", {}), ("device_full", dict(device_prep=True)),
+                             ("device_c2f", dict(device_prep=True, dump_mode="c2f"))):
+                run_cfg = cfg.replace(exp_dir=name, **kw)
+                tester = get_trainer(run_cfg)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.time()
+                tester.test()
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = dict(launch_counts)
+                dumps = [torch.load(os.path.join(tester.snapshot_dir, f"{i}.pth"),
+                                    weights_only=False) for i in range(len(sizes))]
+                print(f"[tester] {name}: {wall / len(sizes):.3f} s/pair over {len(sizes)} pairs "
+                      f"(host prep, forward and dumps); max_memory_allocated "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
+                      f"correspondences {[int(d['confidence'].shape[0]) for d in dumps]} "
+                      f"(random weights: the count carries no meaning)", flush=True)
+                missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
+                if missing:
+                    fail(f"kernels never launched by the Tester ({name}): {missing}")
+                backward = [k for k, v in launches.items() if v and k not in FORWARD_KERNELS]
+                if backward:
+                    fail(f"backward kernels launched by the Tester ({name}): {backward}")
+                for i, ((n, m), d) in enumerate(zip(sizes, dumps)):
+                    if set(d) != DUMP_FILE_KEYS:
+                        fail(f"{name} dump {i}: keys {sorted(set(d) ^ DUMP_FILE_KEYS)} differ "
+                             "from the JAX Tester's")
+                    nodes = (d["src_nodes"].shape[0], d["tgt_nodes"].shape[0])
+                    shapes = {"src_raw_pcd": (n, 3), "src_pcd": (n, 3), "tgt_pcd": (m, 3),
+                              "gt_src_node_occ": (nodes[0],), "gt_tgt_node_occ": (nodes[1],),
+                              "tgt_corr_pts": tuple(d["src_corr_pts"].shape),
+                              "confidence": (d["src_corr_pts"].shape[0],)}
+                    if "full" in name:
+                        shapes.update(src_point_desc=(n, 256), tgt_point_desc=(m, 256),
+                                      src_node_desc=(nodes[0], 256),
+                                      tgt_node_desc=(nodes[1], 256))
+                    wrong = {k: tuple(d[k].shape) for k, v in shapes.items()
+                             if tuple(d[k].shape) != v}
+                    if wrong or not 0 < nodes[0] <= n // 64:
+                        fail(f"{name} dump {i}: ragged shapes {wrong}, expected {shapes}; "
+                             f"nodes {nodes}")
+                    if not all(torch.isfinite(v).all() for v in d.values()):
+                        fail(f"{name} dump {i} is not finite")
+                runs[name] = dumps
+
+            for i, (full, c2f) in enumerate(zip(runs["device_full"], runs["device_c2f"])):
+                if full["confidence"].shape[0] <= cfg.dump_corr_cap and not all(
+                        torch.equal(full[k], c2f[k]) for k in ("src_corr_pts", "tgt_corr_pts",
+                                                               "confidence")):
+                    fail(f"pair {i}: the c2f dump's correspondences differ from the full dump's")
+            cos_min = 1.0
+            for i, (host, dev) in enumerate(zip(runs["host_full"], runs["device_full"])):
+                for k in ("src_pcd", "tgt_pcd", "src_nodes", "tgt_nodes", "rot", "trans"):
+                    if not torch.equal(host[k], dev[k]):
+                        fail(f"pair {i}: {k} differs between host and device prep")
+                for k in ("src_node_desc", "tgt_node_desc"):
+                    cos_min = min(cos_min, float(_cos(host[k], dev[k]).min()))
+            print(f"[tester] c2f correspondences equal the full dumps' (cap "
+                  f"{cfg.dump_corr_cap}); node descriptors, device prep against host prep: min "
+                  f"cos {cos_min:.6f} (tol > 0.99)", flush=True)
+            if not cos_min > 0.99:
+                fail("node descriptors of device prep disagree with host prep")
+            # random weights keep no correspondence at the config's threshold, so
+            # the compaction is also held, on the card, to an output that keeps
+            # every one (threshold 0), under the cap and over it
+            keep_all = cfg.replace(fine_matching_confidence_threshold=0.0, device_prep=True)
+            model = RoITr(keep_all, device="cuda", seed=0).eval()
+            with torch.no_grad():
+                out = model(device_prep_pair(dict_to_pair(get_dataset(keep_all, "test")[0],
+                                                          "cuda"), keep_all), with_gt=True)
+            mask = out["corr_masks"]
+            total = int(mask.sum())
+            for cap in (cfg.dump_corr_cap, total // 2):
+                c = compact_corr(out, cap)
+                n = int(c["corr_count"])
+                if n != min(total, cap) or not all(
+                        torch.equal(c[k][:n], out[k][mask][:n])
+                        for k in ("src_corr_points", "tgt_corr_points", "corr_scores")):
+                    fail(f"compact_corr on the card at cap {cap}: {n} rows, not the masked "
+                         f"selection of {total}")
+            print(f"[tester] compact_corr on the card, every correspondence kept: {total} rows "
+                  f"equal the masked selection under the cap and its first {total // 2} at cap "
+                  f"{total // 2}", flush=True)
+
+            # device normals on the card against the host's (scipy) normals
+            host_ds = get_dataset(cfg, "test")
+            frac_min, normal_ms = 1.0, []
+            for i in range(len(sizes)):
+                item = host_ds[i]
+                sides = []
+                torch.cuda.synchronize()
+                t0 = time.time()
+                for pts_key, count_key in (("src_raw_points", "src_count"),
+                                           ("tgt_points", "tgt_count")):
+                    pts = torch.from_numpy(item[pts_key]).cuda()
+                    sides.append(estimate_normals(pts, torch.tensor(int(item[count_key]),
+                                                                    device="cuda"),
+                                                  k=cfg.normal_knn))
+                torch.cuda.synchronize()
+                normal_ms.append((time.time() - t0) * 1e3)
+                for dev_n, side in zip(sides, ("src", "tgt")):
+                    c = int(item[f"{side}_count"])
+                    dots = (dev_n[:c].cpu() * torch.from_numpy(item[f"{side}_normals"][:c])).sum(-1)
+                    frac_min = min(frac_min, float((dots > 0.999).double().mean()))
+            print(f"[tester] device normals of a pair (both clouds, H2D of the points included): "
+                  f"{', '.join(f'{t:.1f}' for t in normal_ms)} ms; dot > 0.999 with the host "
+                  f"normals on at least {frac_min:.4%} of valid points (tol >= 98%)", flush=True)
+            if not frac_min >= 0.98:
+                fail("device normals disagree with the host normals")
+        finally:
+            os.chdir(cwd)
+
+
 def _grad_step(model, pair):
     """Forward, losses and backward of one train step (no optimizer):
     (losses, {name: gradient on the CPU})."""
@@ -784,6 +968,7 @@ def main() -> int:
     cfg = Config(benchmark="3DMatch")
     state_dict = phase_forward(cfg, rng)
     phase_serving(cfg, state_dict, rng)
+    phase_tester(rng)
     phase_train_parity(cfg, rng)
     launches, _, _ = phase_training(rng)
 

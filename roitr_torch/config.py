@@ -69,10 +69,13 @@ class Config:
     # precompute the FPS/kNN pyramid on the host; the port computes FPS and
     # kNN on the device and raises on True (host pyramids are not ported yet)
     host_pyramid: bool = False
-    # per-pair geometry prep on the device; not ported yet (raises on True)
+    # per-pair geometry prep on the device: the datasets ship zero normals
+    # and the Tester estimates them on the device (ops/pyramid.py
+    # device_prep_pair) before the forward
     device_prep: bool = False
-    # test-split dump payload ("full" | "c2f"); read by the Tester, which is
-    # not ported yet
+    # test-split dump payload of the Tester (eval/tester.py): "full" (every
+    # key the reference dumps) or "c2f" (what the registration evaluators
+    # read, correspondences compacted to at most dump_corr_cap rows)
     dump_mode: str = "full"
     dump_corr_cap: int = 16384
 

@@ -1,14 +1,17 @@
-"""Host-side preprocessing: normals and bucketed padding (numpy/scipy).
+"""Host-side preprocessing: cap, augmentation, normals and bucketed
+padding (numpy/scipy).
 
 Counterpart of roitr_tpu/data/preprocess.py (reference
-dataset/tdmatch.py:50-135). Normals come from the scipy cKDTree + PCA
+dataset/tdmatch.py:50-135: load -> cap 30k -> random SO(3) augment ->
+kNN-33 normals -> redirect). Normals come from the scipy cKDTree + PCA
 path; the JAX package uses its native C++ KD-tree instead whenever that is
-built, so tests hand both packages the same normals.
+built, so tests hand both packages the same normals or turn the native
+tree off.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 from scipy.spatial import cKDTree
@@ -58,3 +61,106 @@ def pad_cloud(pcd: np.ndarray, normals: np.ndarray, bucket: int):
     nrm[:n] = normals
     feats = np.ones((bucket, 1), np.float32)
     return pts, nrm, feats, np.int32(n)
+
+
+def _rotate_one_side(rng: np.random.RandomState, src_pcd, tgt_pcd, rot, trans,
+                     rot_factor: float):
+    """A random rotation (zyx Euler angles from `rng`) applied to one side
+    picked by `rng`, the GT fixed up to match. Returns copies."""
+    from scipy.spatial.transform import Rotation
+
+    euler = rng.rand(3) * 2.0 * np.pi / rot_factor
+    rot_ab = Rotation.from_euler("zyx", euler).as_matrix().astype(np.float32)
+    src_pcd, tgt_pcd = src_pcd.copy(), tgt_pcd.copy()
+    if rng.rand(1)[0] > 0.5:
+        src_pcd = src_pcd @ rot_ab.T
+        rot = rot @ rot_ab.T
+    else:
+        tgt_pcd = tgt_pcd @ rot_ab.T
+        rot = rot_ab @ rot
+        trans = rot_ab @ trans
+    return src_pcd, tgt_pcd, rot.astype(np.float32), trans.astype(np.float32)
+
+
+def random_so3_augment(rng: np.random.RandomState, src_pcd: np.ndarray, tgt_pcd: np.ndarray,
+                       rot: np.ndarray, trans: np.ndarray, noise: float,
+                       rot_factor: float = 1.0):
+    """Random full-SO(3) rotation of one side, the GT fixed up to match, and
+    uniform noise on both (reference dataset/tdmatch.py:82-97). Returns
+    copies."""
+    src_pcd, tgt_pcd, rot, trans = _rotate_one_side(rng, src_pcd, tgt_pcd, rot, trans,
+                                                    rot_factor)
+    src_pcd = src_pcd + (rng.rand(*src_pcd.shape).astype(np.float32) - 0.5) * noise
+    tgt_pcd = tgt_pcd + (rng.rand(*tgt_pcd.shape).astype(np.float32) - 0.5) * noise
+    return src_pcd, tgt_pcd, rot, trans
+
+
+def seeded_so3_rotation(index: int, src_pcd, tgt_pcd, rot, trans, rot_factor: float = 1.0):
+    """Deterministic rotation of pair `index` for the rotated benchmarks
+    (reference dataset/tdmatch.py:99-112)."""
+    return _rotate_one_side(np.random.RandomState(index), src_pcd, tgt_pcd, rot, trans,
+                            rot_factor)
+
+
+def cap_points(rng: np.random.RandomState, pcd: np.ndarray, limit: int) -> np.ndarray:
+    """Random subset down to the point cap (reference dataset/tdmatch.py:72-78)."""
+    if pcd.shape[0] > limit:
+        return pcd[rng.permutation(pcd.shape[0])[:limit]]
+    return pcd
+
+
+def preprocess_pair(rng: np.random.RandomState, src_pcd: np.ndarray, tgt_pcd: np.ndarray,
+                    rot: np.ndarray, trans: np.ndarray, buckets: Sequence[int],
+                    points_limit: int = 30000, augment: bool = False,
+                    augment_noise: float = 0.005, rotated_index: Optional[int] = None,
+                    normal_knn: int = 33, view_point=(0.0, 0.0, 0.0),
+                    src_raw_pcd: Optional[np.ndarray] = None,
+                    metric_index: Optional[np.ndarray] = None, build_pyramid: bool = False,
+                    device_prep: bool = False) -> Dict[str, np.ndarray]:
+    """One pair through the host pipeline -> dict of padded numpy arrays.
+
+    `src_raw_pcd`: the raw source geometry when `src_pcd` is a deformed
+    cloud (4DMatch); defaults to `src_pcd`. `device_prep=True` ships zero
+    normals, which ops/pyramid.py `device_prep_pair` replaces on the device
+    before the model reads them. Host pyramids (`build_pyramid`) are not
+    ported: the port's backbone builds its FPS/kNN pyramid on the device.
+    """
+    if build_pyramid:
+        raise NotImplementedError("host pyramids (build_pyramid) are a later slice of the port; "
+                                  "the backbone builds its pyramid on the device")
+    if trans.ndim == 1:
+        trans = trans[:, None]
+    src_pcd = cap_points(rng, src_pcd, points_limit)
+    tgt_pcd = cap_points(rng, tgt_pcd, points_limit)
+    if augment:
+        src_pcd, tgt_pcd, rot, trans = random_so3_augment(rng, src_pcd, tgt_pcd, rot, trans,
+                                                          augment_noise)
+    elif rotated_index is not None:
+        src_pcd, tgt_pcd, rot, trans = seeded_so3_rotation(rotated_index, src_pcd, tgt_pcd, rot,
+                                                           trans)
+    if src_raw_pcd is None:
+        src_raw_pcd = src_pcd
+
+    if device_prep:
+        src_normals = np.zeros_like(src_raw_pcd)
+        tgt_normals = np.zeros_like(tgt_pcd)
+    else:
+        src_normals = normal_redirect_np(src_raw_pcd, estimate_normals_np(src_raw_pcd, normal_knn),
+                                         view_point)
+        tgt_normals = normal_redirect_np(tgt_pcd, estimate_normals_np(tgt_pcd, normal_knn),
+                                         view_point)
+
+    bucket = pick_bucket(max(src_pcd.shape[0], tgt_pcd.shape[0]), buckets)
+    s_pts, s_nrm, s_feats, s_cnt = pad_cloud(src_pcd, src_normals, bucket)
+    t_pts, t_nrm, t_feats, t_cnt = pad_cloud(tgt_pcd, tgt_normals, bucket)
+    raw_pts = np.zeros((bucket, 3), np.float32)
+    raw_pts[: src_raw_pcd.shape[0]] = src_raw_pcd
+    out = {
+        "src_points": s_pts, "src_raw_points": raw_pts, "src_normals": s_nrm,
+        "src_feats": s_feats, "src_count": s_cnt,
+        "tgt_points": t_pts, "tgt_normals": t_nrm, "tgt_feats": t_feats, "tgt_count": t_cnt,
+        "rot": rot.astype(np.float32), "trans": trans.astype(np.float32),
+    }
+    if metric_index is not None:
+        out["metric_index"] = metric_index
+    return out

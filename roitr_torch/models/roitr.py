@@ -97,9 +97,11 @@ class RoITr(nn.Module):
 
     def __init__(self, cfg: Config, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.host_pyramid or cfg.device_prep or cfg.packed_batch:
+        # cfg.device_prep is read by the callers (Tester, Matcher), which run
+        # ops/pyramid.py device_prep_pair before the forward, as in JAX
+        if cfg.host_pyramid or cfg.packed_batch:
             raise NotImplementedError(
-                "host_pyramid, device_prep and packed_batch are not ported yet")
+                "host_pyramid and packed_batch are not ported yet (a later slice of the port)")
         if cfg.knn_method != "exact":
             raise NotImplementedError(f"knn_method {cfg.knn_method!r}: the port has exact kNN")
         if cfg.sinkhorn_backend != "pallas":

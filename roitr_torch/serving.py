@@ -9,9 +9,10 @@ the device, and the fixed-capacity outputs trimmed back to ragged numpy.
     out["src_corr_pts"], out["tgt_corr_pts"], out["confidence"]
 
 Normals are estimated as the datasets do (kNN-33 PCA + view-point
-redirect, reference dataset/tdmatch.py:120-127); pass `src_normals` /
-`tgt_normals` to skip that. Batched matching and device-side prep are
-later slices of the port.
+redirect, reference dataset/tdmatch.py:120-127), on the host with
+`prep="host"` (the default) or on the device with `prep="device"`
+(ops/normals.py); pass `src_normals` / `tgt_normals` to skip that. Batched
+matching is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -29,29 +30,41 @@ from roitr_torch.data.preprocess import (
     pick_bucket,
 )
 from roitr_torch.models.roitr import PairInputs, RoITr
+from roitr_torch.ops.pyramid import device_prep_pair
 
 
 class Matcher:
     """Serving wrapper around the RoITr pipeline."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor], device="cuda",
-                 descriptors: bool = False):
+                 descriptors: bool = False, prep: str = "host"):
+        """prep: where the normals the caller does not give are estimated,
+        "host" (scipy kNN + PCA, data/preprocess.py) or "device" (exact kNN
+        + closed-form PCA on the device, ops/normals.py). Normals the caller
+        gives are always used."""
+        if prep not in ("host", "device"):
+            raise ValueError(f"unknown prep mode {prep!r}")
         self.cfg = cfg
         self.descriptors = descriptors
+        self.prep = prep
         self.model = RoITr(cfg, device=device)
         self.model.load_state_dict(state_dict)
         self.model.eval()
         self.device = self.model.device
 
-    def _prepare(self, src_pcd, tgt_pcd, src_normals, tgt_normals) -> PairInputs:
+    def _prepare(self, src_pcd, tgt_pcd, src_normals, tgt_normals):
+        """(PairInputs on the device, est): est says which sides' normals are
+        still to be estimated on the device; those carry zeros until then."""
         cfg = self.cfg
         view = np.zeros(3, np.float32)  # datasets redirect toward the origin
+        est = (src_normals is None and self.prep == "device",
+               tgt_normals is None and self.prep == "device")
         if src_normals is None:
-            src_normals = normal_redirect_np(src_pcd, estimate_normals_np(src_pcd, cfg.normal_knn),
-                                             view)
+            src_normals = (np.zeros_like(src_pcd) if est[0] else normal_redirect_np(
+                src_pcd, estimate_normals_np(src_pcd, cfg.normal_knn), view))
         if tgt_normals is None:
-            tgt_normals = normal_redirect_np(tgt_pcd, estimate_normals_np(tgt_pcd, cfg.normal_knn),
-                                             view)
+            tgt_normals = (np.zeros_like(tgt_pcd) if est[1] else normal_redirect_np(
+                tgt_pcd, estimate_normals_np(tgt_pcd, cfg.normal_knn), view))
         bucket = pick_bucket(max(len(src_pcd), len(tgt_pcd)), cfg.buckets)
         s_pts, s_nrm, s_feats, s_cnt = pad_cloud(src_pcd, src_normals, bucket)
         t_pts, t_nrm, t_feats, t_cnt = pad_cloud(tgt_pcd, tgt_normals, bucket)
@@ -59,9 +72,10 @@ class Matcher:
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         count = lambda c: torch.tensor(int(c), dtype=torch.int64, device=dev)
         src = t(s_pts)
-        return PairInputs(src_points=src, src_raw_points=src, src_normals=t(s_nrm),
+        pair = PairInputs(src_points=src, src_raw_points=src, src_normals=t(s_nrm),
                           src_feats=t(s_feats), src_count=count(s_cnt), tgt_points=t(t_pts),
                           tgt_normals=t(t_nrm), tgt_feats=t(t_feats), tgt_count=count(t_cnt))
+        return pair, est
 
     @torch.no_grad()
     def match(self, src_pcd: np.ndarray, tgt_pcd: np.ndarray,
@@ -90,8 +104,8 @@ class Matcher:
                 tgt_pcd = tgt_pcd[idx]
                 if tgt_normals is not None:
                     tgt_normals = np.asarray(tgt_normals, np.float32)[idx]
-        pair = self._prepare(src_pcd, tgt_pcd, src_normals, tgt_normals)
-        out = self.model(pair)
+        pair, est = self._prepare(src_pcd, tgt_pcd, src_normals, tgt_normals)
+        out = self.model(device_prep_pair(pair, self.cfg, est))
         mask = out["corr_masks"]
         res = {
             "src_corr_pts": out["src_corr_points"][mask].cpu().numpy(),

@@ -6,11 +6,13 @@ epoch and one per best metric under snapshot/<exp_dir>/checkpoints, and
 resume from cfg.pretrain. One pair a step on one card (or on the CPU when
 asked, with the kernels' plain versions).
 
-    trainer = Trainer(cfg, train_dataset, val_dataset)   # device="cuda"
+    trainer = Trainer(cfg)                  # device="cuda"; datasets from cfg
     best = trainer.train()
 
 A dataset is a sequence of preprocessed items (numpy dicts of one padded
-pair with its GT transform, as data/synthetic.py `SyntheticPairs` yields).
+pair with its GT transform, as data/tdmatch.py `TDMatchDataset` and
+data/synthetic.py `SyntheticPairs` yield); without one, the split of the
+config is read (data/__init__.py `get_dataset`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, List
 import torch
 
 from roitr_torch.config import Config
+from roitr_torch.data import get_dataset
 from roitr_torch.data.loader import iterate_batches
 from roitr_torch.models.roitr import RoITr, resolve_device
 from roitr_torch.parallel.train_step import eval_step, make_optimizer, train_step
@@ -39,16 +42,16 @@ class Trainer:
     forward, backward and optimizer ms; that synchronises the card at each
     border, so it is off by default."""
 
-    def __init__(self, cfg: Config, train_dataset, val_dataset, device="cuda",
+    def __init__(self, cfg: Config, train_dataset=None, val_dataset=None, device="cuda",
                  time_steps: bool = False):
-        if train_dataset is None or val_dataset is None:
-            raise NotImplementedError("the 3DMatch datasets are not ported: pass the datasets")
         if cfg.batch_size != 1 or cfg.packed_batch:
             raise NotImplementedError("one pair a step: batches and packed batches are a later "
                                       "slice of the port")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.train_dataset, self.val_dataset = train_dataset, val_dataset
+        self.train_dataset = (get_dataset(cfg, "train") if train_dataset is None
+                              else train_dataset)
+        self.val_dataset = get_dataset(cfg, "val") if val_dataset is None else val_dataset
         self.snapshot_dir = os.path.join("snapshot", cfg.exp_dir)
         self.ckpt_dir = os.path.join(self.snapshot_dir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
@@ -56,7 +59,7 @@ class Trainer:
         self.writer = ScalarWriter(self.snapshot_dir)
 
         self.model = RoITr(cfg, device=self.device, seed=cfg.seed)
-        steps_per_epoch = min(len(train_dataset), cfg.training_max_iter)
+        steps_per_epoch = min(len(self.train_dataset), cfg.training_max_iter)
         self.optimizer = make_optimizer(cfg, self.model, steps_per_epoch)
         self.step = 0
         self.start_epoch = 0

@@ -592,3 +592,83 @@ def test_sinkhorn_function_hands_its_trajectory_to_the_backward(dev):
     with torch.no_grad():
         out = _launched("sinkhorn", lambda: sinkhorn(s, mu, nu, 100))
     assert out.grad_fn is None
+
+
+def test_estimate_normals_on_card_matches_cpu(dev):
+    """Device normals at the 32768 bucket (30000 valid points) on the card
+    and on the CPU: the same exact kNN and closed-form PCA, so dot > 0.999
+    on at least 99.9% of points (a neighbour at a near-tie distance may
+    differ), unit length, and zero pad rows."""
+    from roitr_torch.data.synthetic import make_surface_cloud
+    from roitr_torch.ops.normals import estimate_normals
+
+    pts = np.zeros((32768, 3), np.float32)
+    pts[:30000] = make_surface_cloud(np.random.RandomState(3), 30000)
+    got = estimate_normals(torch.from_numpy(pts).to(dev), torch.tensor(30000, device=dev))
+    ref = estimate_normals(torch.from_numpy(pts), torch.tensor(30000))
+    got = got.cpu()
+    dots = (got[:30000] * ref[:30000]).sum(-1)
+    assert float((dots > 0.999).double().mean()) >= 0.999, float(dots.min())
+    assert torch.allclose(got[:30000].norm(dim=-1), torch.ones(30000), atol=1e-5)
+    assert not got[30000:].any()
+
+
+def test_tester_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The Tester with device prep on one pair at the 4096 bucket, full
+    width, on the card and on the CPU: geometry keys exactly, node
+    descriptors cos >= 0.999, and the four forward kernels launched."""
+    import os
+    import pickle
+
+    from roitr_torch.config import Config
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.eval.tester import Tester as PortTester
+    from roitr_torch.models.roitr import RoITr
+
+    monkeypatch.chdir(tmp_path)
+    arr = make_pair_arrays(np.random.RandomState(8), 4096, 3900, 3600)
+    os.makedirs("indoor/test/s")
+    torch.save(torch.from_numpy(arr["src_points"][:3900].copy()), "indoor/test/s/cloud_bin_0.pth")
+    torch.save(torch.from_numpy(arr["tgt_points"][:3600].copy()), "indoor/test/s/cloud_bin_1.pth")
+    with open("test.pkl", "wb") as f:
+        pickle.dump({"rot": [arr["rot"]], "trans": [arr["trans"]], "overlap": [0.5],
+                     "src": ["test/s/cloud_bin_0.pth"], "tgt": ["test/s/cloud_bin_1.pth"]}, f)
+    cfg = Config(benchmark="3DMatch", mode="test", root="indoor", test_info="test.pkl",
+                 buckets=(4096,), device_prep=True, num_workers=0)
+    state_dict = RoITr(cfg, device="cpu", seed=0).state_dict()
+    kernels.reset_launch_counts()
+    PortTester(cfg.replace(exp_dir="card"), state_dict=state_dict, device=dev).test()
+    assert all(kernels.launch_counts[k] > 0 for k in kernels.FORWARD_KERNELS), \
+        kernels.launch_counts
+    PortTester(cfg.replace(exp_dir="cpu"), state_dict=state_dict, device="cpu").test()
+    a = torch.load("snapshot/card/3DMatch/0.pth", weights_only=False)
+    b = torch.load("snapshot/cpu/3DMatch/0.pth", weights_only=False)
+    assert set(a) == set(b)
+    for k in ("src_raw_pcd", "src_pcd", "tgt_pcd", "src_nodes", "tgt_nodes", "rot", "trans"):
+        assert torch.equal(a[k], b[k]), k
+    cos = torch.nn.functional.cosine_similarity
+    for k in ("src_node_desc", "tgt_node_desc"):
+        assert float(cos(a[k].double(), b[k].double(), dim=-1).min()) >= 0.999, k
+    for v in a.values():
+        assert torch.isfinite(v).all()
+
+
+def test_matcher_device_prep_on_card(dev):
+    """Matcher(prep="device") estimates the normals on the card, launches
+    the forward kernels and returns finite output of the valid counts."""
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.serving import Matcher
+
+    cfg = _tiny_cfg()
+    matcher = Matcher(cfg, RoITr(cfg, device="cpu", seed=1).state_dict(), descriptors=True,
+                      prep="device")
+    arr = make_pair_arrays(np.random.RandomState(4), 512, 500, 430)
+    kernels.reset_launch_counts()
+    out = matcher.match(arr["src_points"][:500], arr["tgt_points"][:430])
+    assert all(kernels.launch_counts[k] > 0 for k in kernels.FORWARD_KERNELS), \
+        kernels.launch_counts
+    assert out["src_point_desc"].shape == (500, 256)
+    assert out["tgt_point_desc"].shape == (430, 256)
+    for v in out.values():
+        assert np.isfinite(v).all()

@@ -7,8 +7,12 @@ Runs Config(benchmark="3DMatch") at full width with seeded random weights
 on three synthetic pairs (20k-30k points, the 32768 bucket by default),
 after one warm-up request, and prints:
 
-  * per request: host normal estimation, then Matcher.match with the
-    normals given, both on the host clock around torch.cuda.synchronize();
+  * per request: host normal estimation, device normal estimation
+    (ops/normals.py on the padded clouds), Matcher.match with the normals
+    given (the forward and its trim), and the whole request without normals
+    under prep="host" and prep="device", the two in turns (their order
+    alternates from request to request); all on the host clock around
+    torch.cuda.synchronize();
   * per stage of the forward (inclusive wall ms, summed over the three
     requests, with a synchronize at each stage boundary, so the stages add
     the cost of those waits and nothing else);
@@ -39,7 +43,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from roitr_torch.config import Config  # noqa: E402
 from roitr_torch.data.preprocess import estimate_normals_np, normal_redirect_np  # noqa: E402
 from roitr_torch.data.synthetic import make_pair_arrays  # noqa: E402
+from roitr_torch.data.preprocess import pad_cloud, pick_bucket  # noqa: E402
 from roitr_torch.models.roitr import RoITr  # noqa: E402
+from roitr_torch.ops.normals import estimate_normals  # noqa: E402
 from roitr_torch.serving import Matcher  # noqa: E402
 
 STAGE_MS: "collections.Counter[str]" = collections.Counter()
@@ -116,7 +122,9 @@ def main() -> int:
     print(card, flush=True)
 
     cfg = Config(benchmark="3DMatch")
-    matcher = Matcher(cfg, RoITr(cfg, device="cpu", seed=0).state_dict(), device=device)
+    state_dict = RoITr(cfg, device="cpu", seed=0).state_dict()
+    matcher = Matcher(cfg, state_dict, device=device)
+    device_matcher = Matcher(cfg, state_dict, device=device, prep="device")
     rng = np.random.RandomState(0)
     top = args.points
     sizes = [(top, top * 26 // 30), (top * 25 // 30, top * 28 // 30),
@@ -131,22 +139,43 @@ def main() -> int:
         return (normal_redirect_np(src, estimate_normals_np(src, cfg.normal_knn), view),
                 normal_redirect_np(tgt, estimate_normals_np(tgt, cfg.normal_knn), view))
 
+    def device_normals(src, tgt):
+        """As Matcher(prep="device") does it: pad to the bucket, copy to the
+        device, estimate both clouds' normals there."""
+        bucket = pick_bucket(max(len(src), len(tgt)), cfg.buckets)
+        for pcd in (src, tgt):
+            pts = pad_cloud(pcd, np.zeros_like(pcd), bucket)[0]
+            estimate_normals(torch.from_numpy(pts).to(device),
+                             torch.tensor(len(pcd), device=device), k=cfg.normal_knn)
+
+    def wall_ms(fn, *args):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn(*args)
+        _sync(device)
+        return (time.perf_counter() - t0) * 1e3
+
     matcher.match(*reqs[0], *normals(*reqs[0]))  # warm-up
+    device_matcher.match(*reqs[0])
     _sync(device)
 
     rows = []
     for i, (src, tgt) in enumerate(reqs):
         t0 = time.perf_counter()
         sn, tn = normals(src, tgt)
-        t1 = time.perf_counter()
-        matcher.match(src, tgt, sn, tn)
-        _sync(device)
-        t2 = time.perf_counter()
-        rows.append(dict(points=[len(src), len(tgt)], normals_ms=(t1 - t0) * 1e3,
-                         match_ms=(t2 - t1) * 1e3))
-        print(f"[request {i}] {len(src)} + {len(tgt)} points: host normals "
-              f"{(t1 - t0) * 1e3:.1f} ms, match with normals {(t2 - t1) * 1e3:.1f} ms; {card}",
-              flush=True)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = wall_ms(device_normals, src, tgt)
+        match_ms = wall_ms(matcher.match, src, tgt, sn, tn)
+        order = (("host", matcher), ("device", device_matcher))
+        walls = {name: wall_ms(m.match, src, tgt) for name, m in order[::1 - 2 * (i % 2)]}
+        rows.append(dict(points=[len(src), len(tgt)], normals_ms=host_ms,
+                         device_normals_ms=dev_ms, match_ms=match_ms,
+                         request_host_prep_ms=walls["host"],
+                         request_device_prep_ms=walls["device"], first=next(iter(walls))))
+        print(f"[request {i}] {len(src)} + {len(tgt)} points: host normals {host_ms:.1f} ms, "
+              f"device normals {dev_ms:.1f} ms, match with normals {match_ms:.1f} ms; request "
+              f"wall prep=host {walls['host']:.1f} ms, prep=device {walls['device']:.1f} ms "
+              f"({next(iter(walls))} first); {card}", flush=True)
 
     instrument(device)
     for src, tgt in reqs:
