@@ -24,21 +24,35 @@ Phases, each of which exits non-zero on failure:
                of 20k-30k points (bucket 32768); launch counters are zeroed
                just before and read just after, and every forward kernel
                must have run
-  6. tester    the Tester (get_trainer) at full 3DMatch width from
-               configs/test/tdmatch.yaml (host_pyramid and knn_method
-               overridden) on a test split in the reference layout: three
-               synthetic pairs of 20k-30k points as .pth fragments and an
-               info pickle in a temporary directory; host prep with full
-               dumps, device prep with full dumps and with c2f dumps, counters
-               zeroed before each run and every forward kernel required; the
-               dumps' keys and ragged shapes, c2f against full, device prep
-               against host prep (node descriptors), the compaction on the
-               card with every correspondence kept, device normals against
-               host normals; s/pair, device normals' ms and peak memory
-  7. train parity  one train step's forward, losses and backward at the
+  6. packed    Matcher.match_batch at full 3DMatch width, prep="host"
+               (host pyramids) and prep="device": 8 pairs of 600-1000 points
+               in the 1024 bucket packed into one forward, 2 pairs of
+               20k-30k points in the 32768 bucket in map mode; counters
+               zeroed before each call and its launches required exactly;
+               pairs/s and peak memory; each pair against match of that
+               pair, and the packed forward's node correspondences against
+               the single-pair forwards'
+  7. host pyramid  the native host pyramid of 20k-30k-point clouds split
+               into FPS and kNN, beside the card's FPS and kNN for the same
+               pairs without a pyramid; match request walls, prep="host",
+               with host_pyramid on and off in turns
+  8. tester    the Tester (get_trainer) at full 3DMatch width from
+               configs/test/tdmatch.yaml (knn_method overridden) on a test
+               split in the reference layout: three synthetic pairs of
+               20k-30k points as .pth fragments and an info pickle in a
+               temporary directory; host prep (host pyramids) with full
+               dumps, device prep with full dumps and with c2f dumps, and
+               packed batches of two (host and device prep), counters zeroed
+               before each run and its launches required exactly; the dumps'
+               keys and ragged shapes, c2f against full, packed against
+               single-pair dumps, device prep against host prep (node
+               descriptors), the compaction on the card with every
+               correspondence kept, device normals against host normals;
+               s/pair, device normals' ms and peak memory
+  9. train parity  one train step's forward, losses and backward at the
                4096 bucket on the card and on the CPU, same weights and
                Gumbel noise: losses and every parameter's gradient compared
-  8. training  Trainer at full 3DMatch width (configs/train/tdmatch.yaml)
+  10. training Trainer at full 3DMatch width (configs/train/tdmatch.yaml)
                for 3 train steps and 1 validation step on synthetic pairs of
                20k-30k points (bucket 32768), in a temporary directory;
                counters zeroed before and read after, and all seven kernels
@@ -386,6 +400,13 @@ def phase_kernels(rng):
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bytes=n * n * d * 2 + 4 * (3 * n * d + n * h * d + n) + 4 * (n * d + n * h * d),
         flops=2.0 * n * n * (2 * h * d + 2 * d))
+    same_one = all(torch.equal(a[0], b) for a, b in zip(
+        fused_rpe_self_attention(*(t[None] for t in (q2, k2, v2, qwp, embed, mask))), (hid, ae)))
+    print(f"[kernels] rpe_attention (1, N, D) inputs bit-equal to the one-pair entry: "
+          f"{same_one}", flush=True)
+    if not same_one:
+        fail("rpe_attention with a pair axis of 1 differs from the one-pair entry")
+    rpe_attention_pair_axis(gen)
 
     # ---- RPE attention backward, same inputs, random cotangents
     ghid = torch.randn(n, d, generator=gen).to(dev)
@@ -533,6 +554,47 @@ def phase_kernels(rng):
     return rows
 
 
+def rpe_attention_pair_axis(gen):
+    """Row 3 with a pair axis, the packed path's launch: B = 8 pairs of the
+    1024 bucket's coarse level (N 16, mixed valid counts) and B = 2 at
+    N 512; D 256, H 4, bf16 embedding. Against rpe_attention_plain with the
+    pair axis (1e-4 of the largest value) and against B one-pair launches
+    (bit-equal); one batched launch and B one-pair launches timed."""
+    from roitr_torch.kernels.rpe_attention_kernel import (
+        fused_rpe_self_attention,
+        rpe_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    d, h = 256, 4
+    for b, n, valid in ((8, 16, (16, 15, 12, 9, 16, 4, 1, 13)), (2, 512, (512, 430))):
+        q2, k2, v2 = (torch.randn(b, n, d, generator=gen).to(dev) for _ in range(3))
+        qwp = (torch.randn(b, n, h, d, generator=gen) * 0.1).to(dev)
+        embed = torch.randn(b, n, n, d, generator=gen).to(dev, torch.bfloat16)
+        mask = (torch.arange(n)[None, :] < torch.tensor(valid)[:, None]).float().to(dev)
+        args = (q2, k2, v2, qwp, embed, mask)
+        got = fused_rpe_self_attention(*args)
+        ref = rpe_attention_plain(*args)
+        err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+        top = max(float(r.abs().max()) for r in ref)
+        per_pair = [fused_rpe_self_attention(*(t[i] for t in args)) for i in range(b)]
+        same = all(torch.equal(got[j][i], per_pair[i][j]) for i in range(b) for j in (0, 1))
+        ms = cuda_ms(lambda: fused_rpe_self_attention(*args), 20)
+        pair_ms = cuda_ms(lambda: [fused_rpe_self_attention(*(t[i] for t in args))
+                                   for i in range(b)], 20)
+        plain_ms = cuda_ms(lambda: rpe_attention_plain(*args), 3)
+        byt = b * (n * n * d * 2 + 4 * (3 * n * d + n * h * d + n) + 4 * (n * d + n * h * d))
+        b_ms, b_by = bound(byt, b * 2.0 * n * n * (2 * h * d + 2 * d))
+        print(f"[kernels] rpe_attention pair axis B={b} N={n} D={d} H={h} bf16, valid {valid}: "
+              f"max abs err {err:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g}); bit-equal to "
+              f"{b} one-pair launches: {same}; one batched launch {ms:.4f} ms, {b} one-pair "
+              f"launches {pair_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        if not (err <= 1e-4 * top and same):
+            fail(f"rpe_attention with a pair axis of {b} outside tolerance or not equal to "
+                 "one-pair launches")
+
+
 def _pair(arr, n, m, device):
     from roitr_torch.data.preprocess import estimate_normals_np, normal_redirect_np
     from roitr_torch.models.roitr import PairInputs
@@ -645,6 +707,250 @@ def phase_serving(cfg, state_dict, rng):
     return launches
 
 
+def _corr_rows(res):
+    """{(src xyz, tgt xyz): confidence} of a result's kept correspondences."""
+    keys = np.concatenate([res["src_corr_pts"], res["tgt_corr_pts"]], axis=1)
+    return {tuple(k): c for k, c in zip(keys.tolist(), res["confidence"].tolist())}
+
+
+def _corr_diff(got, want):
+    """(pairs in one result only, pairs in either, largest confidence
+    difference on the shared pairs) of two results."""
+    g, w = _corr_rows(got), _corr_rows(want)
+    shared = set(g) & set(w)
+    err = max((abs(g[k] - w[k]) for k in shared), default=0.0)
+    return len(set(g) ^ set(w)), len(set(g) | set(w)), err
+
+
+# launches of the four forward kernels a forward: FPS three levels (both
+# clouds, or both sides of a packed batch, in one launch a level), the
+# geometric embedding one a side, RPE attention one a self layer and side,
+# Sinkhorn one
+FORWARD_LAUNCHES = {"fps": 3, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1}
+
+
+def phase_packed(cfg, state_dict, rng):
+    """Matcher.match_batch at full 3DMatch width: 8 pairs of 600-1000 points
+    in the 1024 bucket packed, and 2 pairs of 20k-30k points in the 32768
+    bucket in map mode, each under prep="host" (host pyramids) and
+    prep="device". Counters zeroed just before each call and read just
+    after; pairs/s, peak memory; each pair against `match` of that pair on
+    the same card (map mode: equal; packed: near-ties apart, see
+    `_coarse_flips`)."""
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from roitr_torch.serving import Matcher
+
+    def clouds_of(count, bucket, lo, hi):
+        out = []
+        for _ in range(count):
+            n, m = (int(c) for c in rng.randint(lo, hi + 1, size=2))
+            arr = make_pair_arrays(rng, bucket, n, m)
+            out.append((arr["src_points"][:n], arr["tgt_points"][:m]))
+        return out
+
+    small, big = clouds_of(8, 1024, 600, 1000), clouds_of(2, 32768, 20000, 30000)
+    # a 1024 bucket below the config's smallest (4096); every correspondence
+    # kept, so that the comparison with match has rows: random weights keep
+    # none at the config's threshold
+    overrides = dict(buckets=(1024,) + tuple(cfg.buckets),
+                     fine_matching_confidence_threshold=0.0)
+    print(f"[packed] Config(benchmark='3DMatch') with {overrides}; host_pyramid on under "
+          "prep='host'", flush=True)
+    for prep in ("host", "device"):
+        mcfg = cfg.replace(host_pyramid=prep == "host", **overrides)
+        matcher = Matcher(mcfg, state_dict, device="cuda", prep=prep)
+        for clouds, mode in ((small, "packed"), (big, "map")):
+            matcher.match_batch(clouds, batch_size=8, mode=mode)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.time()
+            got = matcher.match_batch(clouds, batch_size=8, mode=mode)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {k: launch_counts[k] for k in FORWARD_KERNELS}
+            forwards = 1 if mode == "packed" else len(clouds)
+            want = {k: v * forwards for k, v in FORWARD_LAUNCHES.items()}
+            if prep == "host":
+                want["fps"] = 0  # host pyramids: no search on the card
+            bucket = 1024 if mode == "packed" else 32768
+            print(f"[packed] prep={prep} mode={mode} bucket {bucket}: {len(clouds)} pairs in "
+                  f"{wall * 1e3:.1f} ms, {len(clouds) / wall:.2f} pairs/s (host prep "
+                  f"included); max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches} "
+                  f"(expected {want})", flush=True)
+            if launches != want:
+                fail(f"match_batch prep={prep} mode={mode}: launches {launches}, expected {want}")
+            # near-ties of random weights: the packed forward's products
+            # (B * N rows) round apart from the single-pair forward's, and a
+            # coarse correspondence at a near-tie may go another way; each
+            # such one changes at most point_per_patch * fine_matching_topk
+            # rows of a result. Map mode runs the single-pair forward itself.
+            flips = _coarse_flips(matcher, mcfg, clouds, prep) if mode == "packed" else None
+            diffs = []
+            for i, (src, tgt) in enumerate(clouds):
+                res = got[i]
+                if not all(np.isfinite(v).all() for v in res.values()):
+                    fail(f"match_batch prep={prep} mode={mode} pair {i}: not finite")
+                d, u, e = _corr_diff(res, matcher.match(src, tgt))
+                allowed = 0 if flips is None else (
+                    0.02 * u + flips[i] * mcfg.point_per_patch * mcfg.fine_matching_topk)
+                diffs.append((d, u, e))
+                if d > allowed or e > 1e-4:
+                    fail(f"match_batch prep={prep} mode={mode} pair {i}: {d} of {u} (src, tgt) "
+                         f"pairs differ from match's (allowed {allowed:g}), confidence {e:.3g}")
+            print(f"[packed] prep={prep} mode={mode}: against match of each pair, (src, tgt) "
+                  f"pairs in one result only / in either: "
+                  f"{', '.join(f'{d}/{u}' for d, u, _ in diffs)}; largest confidence "
+                  f"difference on shared pairs {max(e for _, _, e in diffs):.3g} (tol 1e-4)"
+                  + (f"; coarse correspondences at near-ties a pair {flips}" if flips else ""),
+                  flush=True)
+
+
+def _coarse_flips(matcher, cfg, clouds, prep):
+    """Per pair, the coarse (tgt node, src node) correspondences that the
+    packed forward and the single-pair forward do not share; fails unless
+    the node descriptors agree (cos >= 0.9999) and at most 5% differ."""
+    from roitr_torch.data.packing import pack_pairs
+    from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
+    from roitr_torch.utils.packing import to_device
+
+    dev = torch.device("cuda")
+    est = (prep == "device",) * 2
+    pairs = [matcher._prepare(src, tgt, None, None)[0] for src, tgt in clouds]
+    corr = lambda o: {(int(t), int(s)) for t, s, k in zip(o["tgt_node_corr_indices"],
+                                                          o["src_node_corr_indices"],
+                                                          o["node_corr_masks"]) if k}
+    flips, cos_min, total = [], 1.0, 0
+    with torch.no_grad():
+        batch = to_device(pack_pairs(pairs, require_pyramids=prep == "host"), dev)
+        out = matcher.model(device_prep_packed(batch, cfg, est,
+                                               pyramid=batch.src_pyramid is None))
+        for i, pair in enumerate(pairs):
+            one = matcher.model(device_prep_pair(to_device(pair, dev), cfg, est))
+            packed_corr, one_corr = corr({k: v[i] for k, v in out.items()}), corr(one)
+            flips.append(len(packed_corr ^ one_corr))
+            total += len(one_corr)
+            for side in ("src", "tgt"):
+                nc = int(one[f"{side}_node_count"])
+                cos_min = min(cos_min, float(_cos(out[f"{side}_node_feats"][i][:nc],
+                                                  one[f"{side}_node_feats"][:nc]).min()))
+    print(f"[packed] prep={prep} packed forward against single-pair forwards: coarse "
+          f"correspondences in one only {sum(flips)} of {total}; node descriptors min cos "
+          f"{cos_min:.7f} (tol >= 0.9999)", flush=True)
+    if not cos_min >= 0.9999 or sum(flips) > 0.05 * total:
+        fail(f"packed forward disagrees with the single-pair forward (prep={prep})")
+    return flips
+
+
+def phase_host_pyramid(cfg, state_dict, rng):
+    """The native host pyramid (data/pyramid.py) of 20k-30k-point clouds,
+    split into FPS and kNN, beside the searches the backbone runs on the
+    card without a pyramid (FPS of both clouds, and every level's cross,
+    self and 3-NN kNN); the forward alone with and without the pyramid;
+    then Matcher.match request walls with prep="host", host_pyramid on and
+    off, in turns."""
+    from roitr_torch import native
+    from roitr_torch.data.pyramid import build_cloud_pyramid
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.models.backbone import _device_fps_pyramids
+    from roitr_torch.ops.fps import num_valid_samples
+    from roitr_torch.ops.neighbors import masked_knn
+    from roitr_torch.serving import Matcher
+    from roitr_torch.utils.packing import to_device
+
+    sizes = [(30000, 26000), (24000, 28500)]
+    arrays = [make_pair_arrays(rng, 32768, n, m) for n, m in sizes]
+    native.get_lib()  # the build is not timed
+    host_total, host_fps, first_diff = [], [], []
+    dev_fps, dev_knn = [], []
+    for arr, (n, m) in zip(arrays, sizes):
+        chains = {}
+        for side, c in (("src", n), ("tgt", m)):
+            pts = arr[f"{side}_points"]
+            t0 = time.perf_counter()
+            build_cloud_pyramid(pts, c)
+            host_total.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            cur, chain = pts[:c], []
+            for _ in range(3):
+                idx = native.fps(cur, max(len(cur) // 4, 1))
+                chain.append(idx)
+                cur = cur[idx]
+            host_fps.append((time.perf_counter() - t0) * 1e3)
+            chains[side] = chain[0]
+        # the backbone's searches for this pair on the card, no pyramid
+        p = {s: torch.from_numpy(arr[f"{s}_points"]).cuda() for s in ("src", "tgt")}
+        c = {"src": torch.tensor(n, device="cuda"), "tgt": torch.tensor(m, device="cuda")}
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fps = _device_fps_pyramids(p["src"], c["src"], p["tgt"], c["tgt"], cfg.enc_strides)
+            torch.cuda.synchronize()
+            dev_fps.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            for side, side_fps in (("src", fps[0]), ("tgt", fps[1])):
+                cur, cnt = p[side], c[side]
+                for stride, k, idx in zip(cfg.enc_strides, cfg.enc_nsample, side_fps):
+                    new, new_cnt = cur, cnt
+                    if idx is not None:
+                        new, new_cnt = cur[idx], num_valid_samples(cnt, stride)
+                        masked_knn(cur, new, new_cnt, 3)  # the decoder's 3-NN
+                    masked_knn(new, cur, cnt, k, exclude_self=True)
+                    masked_knn(new, new, new_cnt, k, exclude_self=True)
+                    cur, cnt = new, new_cnt
+            torch.cuda.synchronize()
+            dev_knn.append((time.perf_counter() - t0) * 1e3)
+        for j, side in enumerate(("src", "tgt")):
+            host = chains[side]
+            differ = np.nonzero(fps[j][1][:len(host)].cpu().numpy() != host)[0]
+            first_diff.append(f"{differ[0]} of {len(host)}" if len(differ) else "none")
+    fmt = lambda v: ", ".join(f"{x:.1f}" for x in v)
+    knn_host = [t - f for t, f in zip(host_total, host_fps)]
+    print(f"[host pyramid] native build_cloud_pyramid a cloud (one core): {fmt(host_total)} ms, "
+          f"of which FPS {fmt(host_fps)} ms and kNN {fmt(knn_host)} ms; the backbone's "
+          f"searches on the card without a pyramid, a pair (two clouds): FPS {fmt(dev_fps)} ms, "
+          f"kNN {fmt(dev_knn)} ms", flush=True)
+    print(f"[host pyramid] native FPS against the FPS kernel, first sampled level, first pick "
+          f"that differs a cloud: {first_diff} (the host rounds squared distances with FMA "
+          f"under -ffast-math, the kernel without, so a near-tie pick may diverge)", flush=True)
+
+    src, tgt = (arrays[0][f"{s}_points"][:c] for s, c in (("src", sizes[0][0]),
+                                                           ("tgt", sizes[0][1])))
+    matchers = {on: Matcher(cfg.replace(host_pyramid=on), state_dict, device="cuda")
+                for on in (True, False)}
+    # the forward alone, normals given, with the host pyramid and without
+    pair, _ = matchers[True]._prepare(src, tgt, np.zeros_like(src), np.zeros_like(tgt))
+    inputs = {True: to_device(pair, "cuda"),
+              False: to_device(pair._replace(src_pyramid=None, tgt_pyramid=None), "cuda")}
+    fwd = {True: [], False: []}
+    with torch.no_grad():
+        for on in (True, False):
+            matchers[on].model(inputs[on])  # warm-up
+        for _ in range(3):
+            for on in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                matchers[on].model(inputs[on])
+                torch.cuda.synchronize()
+                fwd[on].append((time.perf_counter() - t0) * 1e3)
+    print(f"[host pyramid] forward alone (inputs on the card), in turns: with the host "
+          f"pyramid {fmt(fwd[True])} ms, without {fmt(fwd[False])} ms", flush=True)
+    for m in matchers.values():
+        m.match(src, tgt)  # warm-up
+    walls = {True: [], False: []}
+    for _ in range(3):
+        for on in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            matchers[on].match(src, tgt)
+            torch.cuda.synchronize()
+            walls[on].append((time.perf_counter() - t0) * 1e3)
+    print(f"[host pyramid] match request wall, prep='host', {len(src)} + {len(tgt)} points, in "
+          f"turns: host_pyramid on {fmt(walls[True])} ms, off {fmt(walls[False])} ms", flush=True)
+
+
 # the keys of a dump of the JAX package's Tester (roitr_tpu/eval/tester.py
 # trim_outputs), in both dump modes
 DUMP_FILE_KEYS = {"src_raw_pcd", "src_pcd", "tgt_pcd", "src_nodes", "tgt_nodes", "src_node_desc",
@@ -657,13 +963,15 @@ def phase_tester(rng):
     """The Tester at full 3DMatch width from configs/test/tdmatch.yaml on a
     test split in the reference layout (three synthetic pairs of 20k-30k
     points, `.pth` fragments and an info pickle, in a temporary directory):
-    host prep with full dumps, device prep with full dumps, device prep with
-    c2f dumps; counters zeroed before each run and read after it."""
+    host prep (host pyramids) with full dumps, device prep with full dumps,
+    device prep with c2f dumps, and packed batches of two under host and
+    device prep; counters zeroed before each run and read after it."""
     import pickle
 
     from roitr_torch.config import load_config
     from roitr_torch.data import get_dataset
     from roitr_torch.data.loader import dict_to_pair
+    from roitr_torch.data.pyramid import build_cloud_pyramid
     from roitr_torch.data.synthetic import make_pair_arrays
     from roitr_torch.eval import get_trainer
     from roitr_torch.eval.tester import compact_corr
@@ -696,15 +1004,17 @@ def phase_tester(rng):
                                      "test", "tdmatch.yaml")
             overrides = dict(root=os.path.join(tmp, "indoor"),
                              test_info=os.path.join(tmp, "test_split.pkl"),
-                             pretrain=os.path.join(tmp, "weights.pth"),
-                             host_pyramid=False, knn_method="exact")
+                             pretrain=os.path.join(tmp, "weights.pth"), knn_method="exact")
             print(f"[tester] {yaml_path} with overrides {overrides}", flush=True)
             cfg = load_config(yaml_path, **overrides)
             torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
 
             runs = {}
+            packed = dict(packed_batch=True, batch_size=2)
             for name, kw in (("host_full", {}), ("device_full", dict(device_prep=True)),
-                             ("device_c2f", dict(device_prep=True, dump_mode="c2f"))):
+                             ("device_c2f", dict(device_prep=True, dump_mode="c2f")),
+                             ("host_packed", packed),
+                             ("device_packed", dict(packed, device_prep=True))):
                 run_cfg = cfg.replace(exp_dir=name, **kw)
                 tester = get_trainer(run_cfg)
                 torch.cuda.synchronize()
@@ -722,9 +1032,15 @@ def phase_tester(rng):
                       f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
                       f"correspondences {[int(d['confidence'].shape[0]) for d in dumps]} "
                       f"(random weights: the count carries no meaning)", flush=True)
-                missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
-                if missing:
-                    fail(f"kernels never launched by the Tester ({name}): {missing}")
+                # three pairs: three forwards, or two packed ones (a pack of
+                # two and a tail of one); host prep attaches host
+                # pyramids (cfg.host_pyramid), so no FPS runs on the card
+                forwards = 2 if run_cfg.packed_batch else len(sizes)
+                want = {k: v * forwards for k, v in FORWARD_LAUNCHES.items()}
+                if not run_cfg.device_prep:
+                    want["fps"] = 0
+                if {k: launches[k] for k in FORWARD_KERNELS} != want:
+                    fail(f"Tester ({name}) launches {launches}, expected {want}")
                 backward = [k for k, v in launches.items() if v and k not in FORWARD_KERNELS]
                 if backward:
                     fail(f"backward kernels launched by the Tester ({name}): {backward}")
@@ -755,16 +1071,74 @@ def phase_tester(rng):
                         torch.equal(full[k], c2f[k]) for k in ("src_corr_pts", "tgt_corr_pts",
                                                                "confidence")):
                     fail(f"pair {i}: the c2f dump's correspondences differ from the full dump's")
-            cos_min = 1.0
+            # packed dumps against the single-pair dumps, file by file
+            geometry = ("src_raw_pcd", "src_pcd", "tgt_pcd", "src_nodes", "tgt_nodes", "rot",
+                        "trans")
+            corr = ("src_corr_pts", "tgt_corr_pts", "confidence")
+            for single_name, packed_name in (("host_full", "host_packed"),
+                                             ("device_full", "device_packed")):
+                worst = 0.0
+                for i, (one, pk) in enumerate(zip(runs[single_name], runs[packed_name])):
+                    if set(one) != set(pk) or any(one[k].shape != pk[k].shape or
+                                                  one[k].dtype != pk[k].dtype for k in one):
+                        fail(f"{packed_name} dump {i}: keys, shapes or dtypes differ from "
+                             f"{single_name}'s")
+                    if not all(torch.equal(one[k], pk[k]) for k in geometry):
+                        fail(f"{packed_name} dump {i}: geometry differs from {single_name}'s")
+                    for k, v in one.items():
+                        if k in geometry or k in corr or not v.is_floating_point():
+                            continue
+                        top = max(float(v.abs().max()), 1e-6) if v.numel() else 1.0
+                        worst = max(worst, float((pk[k] - v).abs().max()) / top
+                                    if v.numel() else 0.0)
+                    d, u, e = _corr_diff(*({"src_corr_pts": x["src_corr_pts"].numpy(),
+                                            "tgt_corr_pts": x["tgt_corr_pts"].numpy(),
+                                            "confidence": x["confidence"].numpy()}
+                                           for x in (pk, one)))
+                    if d > 0.05 * u or e > 1e-4:
+                        fail(f"{packed_name} dump {i}: correspondences differ ({d} of {u})")
+                print(f"[tester] {packed_name} dumps against {single_name}'s: keys, shapes, "
+                      f"dtypes and geometry equal; descriptors and occlusion scores within "
+                      f"{worst:.3g} of the largest value (tol 1e-4)", flush=True)
+                if not worst <= 1e-4:
+                    fail(f"{packed_name} dumps differ from {single_name}'s")
+
+            # device prep against host prep. Host prep attaches host pyramids,
+            # whose native FPS rounds distances with FMA, unlike the FPS kernel
+            # of device prep: where a near-tie pick diverges the nodes differ,
+            # and so do descriptors. Such a cloud's host nodes are held to the
+            # native FPS of the same points instead; at most half the clouds
+            # may diverge, and at least one is compared
+            cos_min, diverged, compared = 1.0, [], 0
             for i, (host, dev) in enumerate(zip(runs["host_full"], runs["device_full"])):
-                for k in ("src_pcd", "tgt_pcd", "src_nodes", "tgt_nodes", "rot", "trans"):
+                for k in ("src_pcd", "tgt_pcd", "rot", "trans"):
                     if not torch.equal(host[k], dev[k]):
                         fail(f"pair {i}: {k} differs between host and device prep")
-                for k in ("src_node_desc", "tgt_node_desc"):
-                    cos_min = min(cos_min, float(_cos(host[k], dev[k]).min()))
+                for side, raw, pcd in (("src", "src_raw_pcd", "src_pcd"),
+                                       ("tgt", "tgt_pcd", "tgt_pcd")):
+                    if torch.equal(host[f"{side}_nodes"], dev[f"{side}_nodes"]):
+                        k = f"{side}_node_desc"
+                        cos_min = min(cos_min, float(_cos(host[k], dev[k]).min()))
+                        compared += 1
+                        continue
+                    diverged.append(f"{i} {side}")
+                    pyr = build_cloud_pyramid(host[raw].numpy(), host[raw].shape[0],
+                                              strides=tuple(cfg.enc_strides),
+                                              nsample=tuple(cfg.enc_nsample))
+                    picks = torch.from_numpy(pyr.fps_idx2[pyr.fps_idx3][pyr.fps_idx4]).long()
+                    if not torch.equal(host[f"{side}_nodes"], host[pcd][picks]):
+                        fail(f"pair {i} {side}: host prep's nodes are not the native FPS "
+                             "picks of the same points")
+            clouds = 2 * len(sizes)
             print(f"[tester] c2f correspondences equal the full dumps' (cap "
-                  f"{cfg.dump_corr_cap}); node descriptors, device prep against host prep: min "
-                  f"cos {cos_min:.6f} (tol > 0.99)", flush=True)
+                  f"{cfg.dump_corr_cap}); device prep against host prep: {len(diverged)} of "
+                  f"{clouds} clouds' nodes differ (FPS near-tie, host FMA) "
+                  f"{diverged or ''}, their host nodes equal native FPS of the same points; "
+                  f"node descriptors of the other {compared} min cos {cos_min:.6f} "
+                  f"(tol > 0.99)", flush=True)
+            if not compared or 2 * len(diverged) > clouds:
+                fail(f"{len(diverged)} of {clouds} clouds' nodes differ between device and "
+                     "host prep (at most half may)")
             if not cos_min > 0.99:
                 fail("node descriptors of device prep disagree with host prep")
             # random weights keep no correspondence at the config's threshold, so
@@ -968,6 +1342,8 @@ def main() -> int:
     cfg = Config(benchmark="3DMatch")
     state_dict = phase_forward(cfg, rng)
     phase_serving(cfg, state_dict, rng)
+    phase_packed(cfg, state_dict, rng)
+    phase_host_pyramid(cfg, state_dict, rng)
     phase_tester(rng)
     phase_train_parity(cfg, rng)
     launches, _, _ = phase_training(rng)

@@ -27,6 +27,13 @@
 // differentiation) it also writes the log-sum-exp of both softmaxes, (N, H)
 // each, from which the backward below recomputes every probability without
 // a second pass over e[n].
+//
+// A packed batch of B pairs (the TPU kernel's grid axis added by vmap's
+// batching rule) is one launch: the pair is blockIdx.y, and every pointer
+// moves by that pair's stride, (N, D) for q/k/v/hidden, (N, H, D) for
+// qwp/ae, (N, N, D) for the embedding, (N,) for the mask, (N, H) for the
+// log-sum-exps. Each block's arithmetic is that of one pair alone, so a
+// pair's result does not depend on B.
 
 #include <cstdint>
 
@@ -98,6 +105,20 @@ rpe_attention_kernel(const float* __restrict__ q2, const float* __restrict__ k2,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  {  // this block's pair
+    const size_t pair = blockIdx.y;
+    const size_t nd = (size_t)n_total * d_total;
+    q2 += pair * nd;
+    k2 += pair * nd;
+    v2 += pair * nd;
+    hid += pair * nd;
+    qwp += pair * nd * heads;
+    ae += pair * nd * heads;
+    emb += pair * nd * n_total;
+    mask += pair * n_total;
+    if (lse_attn) lse_attn += pair * n_total * heads;
+    if (lse_pos) lse_pos += pair * n_total * heads;
+  }
   const E* e_row = emb + (size_t)n * n_total * d_total;
 
   for (int i = tid; i < d_total; i += kThreads) s_q[i] = q2[(size_t)n * d_total + i];
@@ -179,8 +200,8 @@ rpe_attention_kernel(const float* __restrict__ q2, const float* __restrict__ k2,
 
 template <typename E, int MAXH>
 int launch(const float* q2, const float* k2, const float* v2, const float* qwp, const void* emb,
-           const float* mask, float* hid, float* ae, float* lse_attn, float* lse_pos, int n,
-           int d, int heads, cudaStream_t stream) {
+           const float* mask, float* hid, float* ae, float* lse_attn, float* lse_pos, int batch,
+           int n, int d, int heads, cudaStream_t stream) {
   // shapes whose scores outgrow a block's shared memory are refused here
   const size_t smem = sizeof(float) * ((size_t)d + (size_t)heads * d + 2 * (size_t)heads * n);
   const cudaError_t set = cudaFuncSetAttribute(
@@ -189,7 +210,7 @@ int launch(const float* q2, const float* k2, const float* v2, const float* qwp, 
     cudaGetLastError();  // clear it, so the next launch is not blamed
     return (int)set;
   }
-  rpe_attention_kernel<E, MAXH><<<n, kThreads, smem, stream>>>(
+  rpe_attention_kernel<E, MAXH><<<dim3(n, batch), kThreads, smem, stream>>>(
       q2, k2, v2, qwp, static_cast<const E*>(emb), mask, hid, ae, lse_attn, lse_pos, n, d,
       heads);
   return (int)cudaGetLastError();
@@ -198,15 +219,15 @@ int launch(const float* q2, const float* k2, const float* v2, const float* qwp, 
 template <typename E>
 int dispatch(const float* q2, const float* k2, const float* v2, const float* qwp,
              const void* emb, const float* mask, float* hid, float* ae, float* lse_attn,
-             float* lse_pos, int n, int d, int heads, cudaStream_t stream) {
+             float* lse_pos, int batch, int n, int d, int heads, cudaStream_t stream) {
   if (heads <= 4)
-    return launch<E, 4>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos, n, d, heads,
-                        stream);
+    return launch<E, 4>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos, batch, n, d,
+                        heads, stream);
   if (heads <= 8)
-    return launch<E, 8>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos, n, d, heads,
-                        stream);
-  return launch<E, kMaxHeads>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos, n, d,
-                              heads, stream);
+    return launch<E, 8>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos, batch, n, d,
+                        heads, stream);
+  return launch<E, kMaxHeads>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos, batch, n,
+                              d, heads, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -939,13 +960,16 @@ extern "C" int roitr_rpe_attention_bwd(const float* q2, const float* k2, const f
                                    (cudaStream_t)stream);
 }
 
+// batch pairs of n nodes each, one launch (gridDim.y = batch, at most 65535)
 extern "C" int roitr_rpe_attention(const float* q2, const float* k2, const float* v2,
                                    const float* qwp, const void* emb, const float* mask,
-                                   float* hid, float* ae, float* lse_attn, float* lse_pos, int n,
-                                   int d, int heads, int emb_bf16, void* stream) {
-  if (heads < 1 || heads > kMaxHeads || d % heads) return (int)cudaErrorInvalidValue;
+                                   float* hid, float* ae, float* lse_attn, float* lse_pos,
+                                   int batch, int n, int d, int heads, int emb_bf16,
+                                   void* stream) {
+  if (heads < 1 || heads > kMaxHeads || d % heads || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   return emb_bf16 ? dispatch<__nv_bfloat16>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn,
-                                            lse_pos, n, d, heads, (cudaStream_t)stream)
-                  : dispatch<float>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos, n,
-                                    d, heads, (cudaStream_t)stream);
+                                            lse_pos, batch, n, d, heads, (cudaStream_t)stream)
+                  : dispatch<float>(q2, k2, v2, qwp, emb, mask, hid, ae, lse_attn, lse_pos,
+                                    batch, n, d, heads, (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 """Host-side preprocessing: cap, augmentation, normals and bucketed
-padding (numpy/scipy).
+padding (numpy/scipy), and the host pyramids (data/pyramid.py).
 
 Counterpart of roitr_tpu/data/preprocess.py (reference
 dataset/tdmatch.py:50-135: load -> cap 30k -> random SO(3) augment ->
@@ -122,12 +122,11 @@ def preprocess_pair(rng: np.random.RandomState, src_pcd: np.ndarray, tgt_pcd: np
     `src_raw_pcd`: the raw source geometry when `src_pcd` is a deformed
     cloud (4DMatch); defaults to `src_pcd`. `device_prep=True` ships zero
     normals, which ops/pyramid.py `device_prep_pair` replaces on the device
-    before the model reads them. Host pyramids (`build_pyramid`) are not
-    ported: the port's backbone builds its FPS/kNN pyramid on the device.
+    before the model reads them. `build_pyramid` adds both clouds' host
+    pyramids (data/pyramid.py, default strides and nsample) under
+    "src_pyramid" / "tgt_pyramid", unless `device_prep`, which builds them
+    on the device.
     """
-    if build_pyramid:
-        raise NotImplementedError("host pyramids (build_pyramid) are a later slice of the port; "
-                                  "the backbone builds its pyramid on the device")
     if trans.ndim == 1:
         trans = trans[:, None]
     src_pcd = cap_points(rng, src_pcd, points_limit)
@@ -163,4 +162,11 @@ def preprocess_pair(rng: np.random.RandomState, src_pcd: np.ndarray, tgt_pcd: np
     }
     if metric_index is not None:
         out["metric_index"] = metric_index
+    if build_pyramid and not device_prep:
+        from roitr_torch.data.pyramid import build_cloud_pyramid
+
+        # the backbone's pyramid is built on the raw source geometry
+        # (reference RIGA_v2.py:62 runs the backbone on src_raw_pcd)
+        out["src_pyramid"] = build_cloud_pyramid(raw_pts, s_cnt)
+        out["tgt_pyramid"] = build_cloud_pyramid(t_pts, t_cnt)
     return out

@@ -11,8 +11,10 @@ Dumps are torch `.pth` files with the JAX package's keys and dtypes.
     tester = Tester(cfg)            # device="cuda"; cfg.pretrain, test split
     tester.test()                   # snapshot/<exp_dir>/<benchmark>/<i>.pth
 
-Sharding over several cards (`dp_size > 1`), packed batches and the
-worker pool are later slices of the port.
+With `cfg.packed_batch` and `cfg.batch_size` B > 1, B same-bucket pairs
+go through one packed forward (data/packing.py) and are dumped one file a
+pair, as the single-pair loop dumps them. Sharding over several cards
+(`dp_size > 1`) and the worker pool are later slices of the port.
 """
 
 from __future__ import annotations
@@ -30,10 +32,12 @@ import torch
 from roitr_torch.config import Config
 from roitr_torch.data import get_dataset
 from roitr_torch.data.loader import dict_to_pair
+from roitr_torch.data.packing import pack_pairs
 from roitr_torch.models.roitr import RoITr, resolve_device
-from roitr_torch.ops.pyramid import device_prep_pair
+from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
 from roitr_torch.train.checkpoint import load_checkpoint
 from roitr_torch.train.trainer import Trainer
+from roitr_torch.utils.packing import to_device
 
 # the forward-output keys that dump_mode="full" reads (trim_outputs)
 DUMP_KEYS = (
@@ -68,6 +72,12 @@ def compact_corr(out: Dict[str, torch.Tensor], cap: int) -> Dict[str, torch.Tens
     `corr_count` after it. The result has no `corr_masks`: the mask of the
     original order would select the wrong rows of the compacted arrays."""
     masks = out["corr_masks"]
+    if masks.ndim == 2:  # a packed batch: each pair compacted alone
+        per_pair = [compact_corr({key: out[key][i] for key in _CORR_KEYS}, cap)
+                    for i in range(masks.shape[0])]
+        res = {key: v for key, v in out.items() if key not in _CORR_KEYS}
+        res.update({key: torch.stack([r[key] for r in per_pair]) for key in per_pair[0]})
+        return res
     k = min(cap, masks.shape[0])
     order = torch.argsort((~masks).to(torch.int32), stable=True)[:k]
     total = masks.sum()
@@ -77,6 +87,9 @@ def compact_corr(out: Dict[str, torch.Tensor], cap: int) -> Dict[str, torch.Tens
                corr_scores=out["corr_scores"][order],
                corr_total=total, corr_count=torch.clamp(total, max=k))
     return res
+
+
+_CORR_KEYS = ("corr_masks", "src_corr_points", "tgt_corr_points", "corr_scores")
 
 
 def _queue_fetch(out: Dict[str, torch.Tensor], keys):
@@ -161,15 +174,17 @@ class Tester:
     lib/tester.py:19-69). `state_dict` overrides `cfg.pretrain` (a port
     checkpoint, train/checkpoint.py, or a bare state_dict). With
     `cfg.device_prep` the dataset ships zero normals and they are estimated
-    on the device before the forward."""
+    on the device before the forward. With `cfg.packed_batch`, batches of
+    `cfg.batch_size` same-bucket pairs run as one packed forward; that needs
+    host pyramids (`cfg.host_pyramid`) or device prep, which builds them."""
 
     def __init__(self, cfg: Config, dataset=None, state_dict=None, device="cuda"):
         if int(cfg.dp_size or 1) > 1:
             raise NotImplementedError("dp_size > 1: sharding the test split over several cards "
                                       "comes with DDP, a later slice of the port")
-        if cfg.packed_batch:
-            raise NotImplementedError("packed_batch: packed batches are a later slice of the "
-                                      "port")
+        self.pack = max(int(cfg.batch_size or 1), 1) if cfg.packed_batch else 1
+        if self.pack > 1 and not (cfg.host_pyramid or cfg.device_prep):
+            raise ValueError("packed_batch requires host_pyramid or device_prep")
         if cfg.dump_mode not in ("full", "c2f"):
             raise ValueError(f"dump_mode must be 'full' or 'c2f', got {cfg.dump_mode!r}")
         self.cfg = cfg
@@ -188,8 +203,10 @@ class Tester:
         self.model.eval()
 
     def _forward(self, pair) -> Dict[str, torch.Tensor]:
+        """One pair, or a packed batch (counts of shape (B,))."""
         if self.cfg.device_prep:
-            pair = device_prep_pair(pair, self.cfg)
+            prep = device_prep_packed if pair.src_count.ndim else device_prep_pair
+            pair = prep(pair, self.cfg)
         out = self.model(pair, with_gt=True)
         if self.cfg.dump_mode == "c2f":
             out = compact_corr(out, self.cfg.dump_corr_cap)
@@ -199,13 +216,40 @@ class Tester:
         data = trim_outputs(out, dict_to_pair(item), metric_index=item.get("metric_index"))
         dump_pair(os.path.join(self.snapshot_dir, str(idx)), data)
 
+    def _groups(self, n: int):
+        """(entries, PairInputs on the device) a forward: one pair each, or
+        with packing up to `self.pack` same-bucket pairs packed (a bucket's
+        ragged tail as a smaller batch). entries: (index, item, slot in the
+        batch or None)."""
+        if self.pack == 1:
+            for idx in range(n):
+                item = self.dataset[idx]
+                yield [(idx, item, None)], dict_to_pair(item, self.device)
+            return
+        pending: Dict[int, list] = {}
+
+        def packed(group):
+            pairs = [dict_to_pair(item) for _, item in group]
+            batch = pack_pairs(pairs, require_pyramids=not self.cfg.device_prep)
+            return ([(idx, item, i) for i, (idx, item) in enumerate(group)],
+                    to_device(batch, self.device))
+
+        for idx in range(n):
+            item = self.dataset[idx]
+            bucket = int(item["src_points"].shape[0])
+            pending.setdefault(bucket, []).append((idx, item))
+            if len(pending[bucket]) == self.pack:
+                yield packed(pending.pop(bucket))
+        for group in pending.values():
+            yield packed(group)
+
     @torch.no_grad()
     def test(self) -> None:
-        """The inference loop. The main thread prepares each pair, queues its
-        forward and the copies of its outputs; one worker thread waits for
-        those copies, trims and writes the dump, so the next pair's host
-        prep and forward overlap it. The queue holds at most two pairs'
-        outputs."""
+        """The inference loop. The main thread prepares each pair (or packed
+        batch), queues its forward and the copies of its outputs; one worker
+        thread waits for those copies, trims and writes the dumps, so the
+        next forward's host prep and forward overlap it. The queue holds at
+        most two forwards' outputs."""
         n = len(self.dataset)
         if int(self.cfg.num_workers) > 1 and n > 1:
             warnings.warn(f"num_workers={self.cfg.num_workers}: the worker pool is a later slice "
@@ -219,21 +263,23 @@ class Tester:
                 job = jobs.get()
                 if job is None:
                     return
-                idx, item, host, event = job
+                entries, host, event = job
                 try:
-                    self._dump(idx, item, _finish_fetch(host, event))
+                    fetched = _finish_fetch(host, event)
+                    for idx, item, i in entries:
+                        self._dump(idx, item, fetched if i is None
+                                   else {k: v[i] for k, v in fetched.items()})
                 except Exception as e:  # re-raised on the main thread
                     errors.append(e)
 
         thread = threading.Thread(target=worker, name="roitr-tester-dump", daemon=True)
         thread.start()
         try:
-            for idx in range(n):
+            for entries, pair in self._groups(n):
                 if errors:
                     break
-                item = self.dataset[idx]
-                out = self._forward(dict_to_pair(item, self.device))
-                jobs.put((idx, item, *_queue_fetch(out, self.fetch_keys)))
+                out = self._forward(pair)
+                jobs.put((entries, *_queue_fetch(out, self.fetch_keys)))
         finally:
             # the worker writes every dump queued before the sentinel, then ends
             jobs.put(None)

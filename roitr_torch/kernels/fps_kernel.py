@@ -45,7 +45,7 @@ def fps_pairs(points: torch.Tensor, counts: torch.Tensor, num_samples: int) -> t
     """points (B, N, 3) f32, counts (B,) int32 -> idx (B, num_samples) int32.
 
     B is 2 on the main path (the two clouds of a pair, one cluster of 8
-    blocks each)."""
+    blocks each), 2 x pairs under packed device prep (ops/pyramid.py)."""
     if route(points) == "plain":
         return fps_plain(points, counts, num_samples)
     from roitr_torch.kernels.build import function

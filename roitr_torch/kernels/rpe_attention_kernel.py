@@ -7,6 +7,11 @@ via `_pallas_backward` (both softmaxes recomputed, then every gradient
 product). The (N, N, D) embedding may be bf16 (storage) while everything
 else is fp32; sums are fp32, and the embedding's gradient comes back in its
 storage dtype. `rpe_attention` is the differentiable entry.
+
+The forward takes a leading pair axis, as the TPU kernel does under the
+packed path's vmap: (B, N, D) q/k/v, (B, N, H, D) qwp, (B, N, N, D)
+embedding, (B, N) key mask, one launch for the B pairs. The backward takes
+one pair: packed training (a pair axis for rows 6 and 7) is the next slice.
 """
 
 from __future__ import annotations
@@ -34,44 +39,49 @@ def supported_width(d: int) -> bool:
 
 
 def _scores(q2, k2, qwp, e, key_mask):
-    """Scores (H, N, N) of the forward, e in q2's dtype, and the keep masks
-    of the value softmax and of the self-excluding positional one."""
-    n, d = q2.shape
-    h = qwp.shape[1]
+    """Scores (..., H, N, N) of the forward, e in q2's dtype, and the keep
+    masks of the value softmax and of the self-excluding positional one."""
+    n, d = q2.shape[-2:]
+    lead = q2.shape[:-2]
+    h = qwp.shape[-2]
     c = d // h
-    scores_e = torch.einsum("nhc,mhc->hnm", q2.reshape(n, h, c), k2.reshape(n, h, c))
-    scores_p = torch.einsum("nhd,nmd->hnm", qwp, e)
-    kmask = (key_mask > 0.0)[None, None, :]
-    eye = torch.eye(n, dtype=torch.bool, device=q2.device)[None]
+    scores_e = torch.einsum("...nhc,...mhc->...hnm", q2.reshape(*lead, n, h, c),
+                            k2.reshape(*lead, n, h, c))
+    scores_p = torch.einsum("...nhd,...nmd->...hnm", qwp, e)
+    kmask = (key_mask > 0.0)[..., None, None, :]
+    eye = torch.eye(n, dtype=torch.bool, device=q2.device)
     return (scores_e + scores_p) / math.sqrt(c), kmask, kmask & ~eye
 
 
 def _masked_lse(scores, keep):
-    """(H, N, N) scores -> (N, H) log-sum-exp over the kept keys, as the
-    kernel forms it (max + log of the shifted sum); +inf for a row with no
-    kept key, so that exp(s - lse) is 0 for every key."""
+    """(..., H, N, N) scores -> (..., N, H) log-sum-exp over the kept keys,
+    as the kernel forms it (max + log of the shifted sum); +inf for a row
+    with no kept key, so that exp(s - lse) is 0 for every key."""
     s = torch.where(keep, scores, torch.tensor(-float("inf"), device=scores.device))
     mx = torch.amax(s, dim=-1)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     tot = torch.exp(s - mx[..., None]).sum(dim=-1)
     lse = torch.where(tot > 0, mx + torch.log(tot), torch.full_like(tot, float("inf")))
-    return lse.t().contiguous()
+    return lse.transpose(-1, -2).contiguous()
 
 
 def rpe_attention_plain(q2, k2, v2, qwp, embed, key_mask, with_lse: bool = False):
     """q2/k2/v2 (N, D), qwp (N, H, D), embed (N, N, D), key_mask (N,)
     float 1/0 -> hidden (N, D), ae (N, H, D) (roitr_tpu `xla_forward`);
     with_lse adds the (N, H) log-sum-exps of the value softmax and of the
-    positional one (_masked_lse)."""
+    positional one (_masked_lse). Every argument and result may carry a
+    leading pair axis (B, ...)."""
     from roitr_torch.models.attention import masked_softmax
 
-    n, d = q2.shape
-    h = qwp.shape[1]
+    n, d = q2.shape[-2:]
+    lead = q2.shape[:-2]
+    h = qwp.shape[-2]
     e = embed.to(q2.dtype)
     scores, keep, keep_pos = _scores(q2, k2, qwp, e, key_mask)
     attn, attn_pos = masked_softmax(scores, keep), masked_softmax(scores, keep_pos)
-    hidden = torch.einsum("hnm,mhc->nhc", attn, v2.reshape(n, h, d // h)).reshape(n, d)
-    ae = torch.einsum("hnm,nmd->nhd", attn_pos, e)
+    hidden = torch.einsum("...hnm,...mhc->...nhc", attn,
+                          v2.reshape(*lead, n, h, d // h)).reshape(*lead, n, d)
+    ae = torch.einsum("...hnm,...nmd->...nhd", attn_pos, e)
     if with_lse:
         return hidden, ae, _masked_lse(scores, keep), _masked_lse(scores, keep_pos)
     return hidden, ae
@@ -133,35 +143,43 @@ def rpe_attention_bwd_onepass_plain(q2, k2, v2, qwp, embed, key_mask, ghid, gae,
 
 
 def _check(q2, k2, v2, qwp, embed, key_mask):
+    """(device, lead, n, d, h): every argument on one card, contiguous, of
+    its dtype and shape; `lead` is () for one pair, (B,) for a batch."""
     dev = q2.device
-    n, d = q2.shape
-    h = qwp.shape[1]
+    n, d = q2.shape[-2:]
+    lead = tuple(q2.shape[:-2])
+    h = qwp.shape[-2]
+    if len(lead) > 1:
+        raise ValueError(f"rpe_attention: q2 of shape {tuple(q2.shape)}, expected (N, D) or "
+                         "(B, N, D)")
     if embed.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rpe_attention: embedding dtype {embed.dtype} not fp32 or bf16")
     for t, name, shape in ((q2, "q2", (n, d)), (k2, "k2", (n, d)), (v2, "v2", (n, d)),
                            (qwp, "qwp", (n, h, d)), (key_mask, "key_mask", (n,))):
-        check_cuda(t, name, torch.float32, shape, dev)
-    check_cuda(embed, "embed", embed.dtype, (n, n, d), dev)
-    return dev, n, d, h
+        check_cuda(t, name, torch.float32, lead + shape, dev)
+    check_cuda(embed, "embed", embed.dtype, lead + (n, n, d), dev)
+    return dev, lead, n, d, h
 
 
 def fused_rpe_self_attention(q2, k2, v2, qwp, embed, key_mask, with_lse: bool = False):
     """Same function and arguments as rpe_attention_plain; one kernel
-    launch on the card, which writes the log-sum-exps only with_lse."""
+    launch on the card, for one pair or a leading pair axis of B, which
+    writes the log-sum-exps only with_lse."""
     if route(q2) == "plain":
         return rpe_attention_plain(q2, k2, v2, qwp, embed, key_mask, with_lse)
     from roitr_torch.kernels.build import function
 
-    dev, n, d, h = _check(q2, k2, v2, qwp, embed, key_mask)
+    dev, lead, n, d, h = _check(q2, k2, v2, qwp, embed, key_mask)
     f32 = dict(dtype=torch.float32, device=dev)
-    hidden = torch.empty((n, d), **f32)
-    ae = torch.empty((n, h, d), **f32)
-    lse = [torch.empty((n, h), **f32) for _ in range(2)] if with_lse else []
+    hidden = torch.empty(lead + (n, d), **f32)
+    ae = torch.empty(lead + (n, h, d), **f32)
+    lse = [torch.empty(lead + (n, h), **f32) for _ in range(2)] if with_lse else []
     fn = function("rpe_attention", "roitr_rpe_attention",
-                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lse_ptrs = [ptr(t) for t in lse] if with_lse else [ctypes.c_void_p(None)] * 2
     err = fn(ptr(q2), ptr(k2), ptr(v2), ptr(qwp), ptr(embed), ptr(key_mask), ptr(hidden),
-             ptr(ae), *lse_ptrs, n, d, h, int(embed.dtype == torch.bfloat16), stream_ptr(dev))
+             ptr(ae), *lse_ptrs, lead[0] if lead else 1, n, d, h,
+             int(embed.dtype == torch.bfloat16), stream_ptr(dev))
     check_launch(err, "rpe_attention")
     launch_counts["rpe_attention"] += 1
     return (hidden, ae, *lse) if with_lse else (hidden, ae)
@@ -174,11 +192,15 @@ def rpe_attention_bwd(q2, k2, v2, qwp, embed, key_mask, ghid, gae, hidden=None, 
     run here if not given). On the card one launch of the backward kernels:
     the per-head products q.k and ghid.v, the one-pass row kernel over the
     embedding, and the products that give dq, dk and dv."""
+    if q2.ndim != 2:
+        raise NotImplementedError(
+            "packed training: the RPE attention backward takes one pair; its pair axis (and "
+            "the geometric embedding backward's) comes with packed training, the next slice")
     if route(q2) == "plain":
         return rpe_attention_bwd_plain(q2, k2, v2, qwp, embed, key_mask, ghid, gae)
     from roitr_torch.kernels.build import function
 
-    dev, n, d, h = _check(q2, k2, v2, qwp, embed, key_mask)
+    dev, _, n, d, h = _check(q2, k2, v2, qwp, embed, key_mask)
     check_launch(function("rpe_attention", "roitr_rpe_attention_bwd_takes",
                           [ctypes.c_int] * 3)(n, d, h), "rpe_attention_bwd")
     if hidden is None:

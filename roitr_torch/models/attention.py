@@ -143,24 +143,26 @@ class GlobalRPESelfAttention(nn.Module):
 
     def forward(self, x, embed, key_mask=None):
         """x (N, d), embed (N, N, d) (fp32 or bf16), key_mask (N,) ->
-        hidden (N, d), pos_states (N, d)."""
-        n, d = x.shape
+        hidden (N, d), pos_states (N, d); or all with a leading pair axis
+        (B, ...), one kernel launch for the B pairs."""
+        n, d = x.shape[-2:]
+        lead = x.shape[:-2]
         h = self.num_heads
         c = d // h
         q2 = self.proj_q(x)
         k2 = self.proj_k(x)
         v2 = self.proj_v(x)
         wp_h = self.proj_p.weight.t().reshape(d, h, c)  # (D_in, H, c)
-        qwp = torch.einsum("nhc,dhc->nhd", q2.reshape(n, h, c), wp_h).contiguous()
-        fmask = (torch.ones(n, dtype=torch.float32, device=x.device) if key_mask is None
-                 else key_mask.to(torch.float32))
+        qwp = torch.einsum("...nhc,dhc->...nhd", q2.reshape(*lead, n, h, c), wp_h).contiguous()
+        fmask = (torch.ones((*lead, n), dtype=torch.float32, device=x.device)
+                 if key_mask is None else key_mask.to(torch.float32))
         kernel = supported_heads(h) and supported_width(d)
         attend = rpe_attention if kernel else rpe_attention_plain
         hidden, ae = attend(q2.contiguous(), k2.contiguous(), v2.contiguous(), qwp,
                             embed.contiguous(), fmask.contiguous())
         wvp_h = self.proj_vp.weight.t().reshape(d, h, c)
-        pos = torch.einsum("nhd,dhc->nhc", ae, wvp_h) + self.proj_vp.bias.reshape(h, c)[None]
-        return hidden, pos.reshape(n, d)
+        pos = torch.einsum("...nhd,dhc->...nhc", ae, wvp_h) + self.proj_vp.bias.reshape(h, c)
+        return hidden, pos.reshape(*lead, n, d)
 
 
 class RPEAttentionLayer(nn.Module):
@@ -209,19 +211,22 @@ class CrossAttention(nn.Module):
         self.norm = _layer_norm(d_model)
 
     def forward(self, x, mem, pos_q, pos_k, key_mask=None):
-        n, d = x.shape
-        m = mem.shape[0]
+        """x (N, d), mem (M, d), key_mask (M,); or with a leading pair axis."""
+        n, d = x.shape[-2:]
+        m = mem.shape[-2]
+        lead = x.shape[:-2]
         h = self.num_heads
         c = d // h
         in_q = x if pos_q is None else x + pos_q
         in_k = mem if pos_k is None else mem + pos_k
         att = self.attention
-        q = att["proj_q"](in_q).reshape(n, h, c)
-        k = att["proj_k"](in_k).reshape(m, h, c)
-        v = att["proj_v"](mem).reshape(m, h, c)
-        scores = torch.einsum("nhc,mhc->hnm", q, k) / math.sqrt(c)
-        attn = masked_softmax(scores, None if key_mask is None else key_mask[None, None, :])
-        hidden = torch.einsum("hnm,mhc->nhc", attn, v).reshape(n, d)
+        q = att["proj_q"](in_q).reshape(*lead, n, h, c)
+        k = att["proj_k"](in_k).reshape(*lead, m, h, c)
+        v = att["proj_v"](mem).reshape(*lead, m, h, c)
+        scores = torch.einsum("...nhc,...mhc->...hnm", q, k) / math.sqrt(c)
+        attn = masked_softmax(scores,
+                              None if key_mask is None else key_mask[..., None, None, :])
+        hidden = torch.einsum("...hnm,...mhc->...nhc", attn, v).reshape(*lead, n, d)
         return self.norm(self.linear(hidden) + x)
 
 

@@ -17,7 +17,7 @@ from roitr_torch.kernels.geo_embedding_kernel import (
     sinusoidal_basis,
     supported_k,
 )
-from roitr_torch.ops.geometry import masked_pairwise_sq_dist, pairwise_sq_dist, prefix_mask
+from roitr_torch.ops.geometry import masked_pairwise_sq_dist, pairwise_sq_dist
 from roitr_torch.ops.topk import topk
 
 _INF = 1e10
@@ -67,44 +67,52 @@ class GeometricStructureEmbedding(nn.Module):
         self.proj_a = nn.Linear(hidden_dim, hidden_dim)
 
     def indices(self, points: torch.Tensor, count=None):
-        """points (N, 3) prefix-packed -> d_indices (N, N), a_indices (N, N, k)."""
-        n = points.shape[0]
-        mask = (prefix_mask(n, count, device=points.device) if count is not None
-                else torch.ones(n, dtype=torch.bool, device=points.device))
+        """points (N, 3) prefix-packed -> d_indices (N, N), a_indices (N, N, k);
+        with a leading pair axis, points (B, N, 3) and count (B,) ->
+        (B, N, N), (B, N, N, k)."""
+        n = points.shape[-2]
+        dev = points.device
+        mask = (torch.arange(n, device=dev) < torch.as_tensor(count, device=dev)[..., None]
+                if count is not None else torch.ones(n, dtype=torch.bool, device=dev))
         sq = masked_pairwise_sq_dist(points, points, y_mask=mask, fill=_INF)
         d_indices = torch.sqrt(pairwise_sq_dist(points, points)) / self.sigma_d
 
         # clamp for tiny node sets (padded buckets can leave < angle_k + 1
         # nodes); the nearest is the row point itself
         k = max(min(self.angle_k, n - 1), 1)
-        near, knn_idx = topk(sq, min(k + 1, n), dim=1, largest=False)
+        near, knn_idx = topk(sq, min(k + 1, n), dim=-1, largest=False)
         if n > 1:
-            near, knn_idx = near[:, 1:], knn_idx[:, 1:]
+            near, knn_idx = near[..., 1:], knn_idx[..., 1:]
         # padding neighbors (distance +inf) are replaced by the row point, so
         # the angle becomes atan2(0, 0) = 0 and never reads padded coordinates
-        self_idx = torch.arange(n, device=points.device)[:, None].expand_as(knn_idx)
+        self_idx = torch.arange(n, device=dev)[:, None].expand_as(knn_idx)
         knn_idx = torch.where(near >= _INF, self_idx, knn_idx)
-        ref_vec = points[knn_idx] - points[:, None, :]  # (N, k, 3)
-        anc_vec = points[None, :, :] - points[:, None, :]  # (N, N, 3)
-        r = ref_vec[:, None, :, :].expand(n, n, k, 3)
-        a = anc_vec[:, :, None, :].expand(n, n, k, 3)
+        if points.ndim == 2:
+            knn_points = points[knn_idx]
+        else:
+            knn_points = points[torch.arange(points.shape[0], device=dev)[:, None, None], knn_idx]
+        ref_vec = knn_points - points[..., :, None, :]  # (..., N, k, 3)
+        anc_vec = points[..., None, :, :] - points[..., :, None, :]  # (..., N, N, 3)
+        shape = (*points.shape[:-2], n, n, k, 3)
+        r = ref_vec[..., :, None, :, :].expand(shape)
+        a = anc_vec[..., :, :, None, :].expand(shape)
         sin_v = torch.linalg.norm(torch.linalg.cross(r, a, dim=-1), dim=-1)
         cos_v = torch.sum(r * a, dim=-1)
-        angles = torch.atan2(sin_v, cos_v)  # (N, N, k)
+        angles = torch.atan2(sin_v, cos_v)  # (..., N, N, k)
         a_indices = angles * (180.0 / (self.sigma_a * math.pi))
         return d_indices, a_indices
 
     def forward(self, points: torch.Tensor, count=None,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """points (N, 3) prefix-packed -> (N, N, hidden_dim) in out_dtype."""
-        n = points.shape[0]
+        """points (..., N, 3) prefix-packed -> (..., N, N, hidden_dim) in
+        out_dtype; with a pair axis all B * N * N rows go to one launch."""
         d_indices, a_indices = self.indices(points, count)
         embed = geo_embedding if supported_k(a_indices.shape[-1]) else geo_embedding_plain
         out = embed(
             d_indices.reshape(-1).contiguous(),
-            a_indices.reshape(n * n, -1).contiguous(),
+            a_indices.reshape(d_indices.numel(), -1).contiguous(),
             self.proj_d.weight.t(), self.proj_d.bias,
             self.proj_a.weight.t(), self.proj_a.bias,
             out_dtype,
         )
-        return out.reshape(n, n, self.hidden_dim)
+        return out.reshape(*d_indices.shape, self.hidden_dim)

@@ -1,18 +1,19 @@
-"""The RoITr coarse-to-fine matching pipeline, single pair.
+"""The RoITr coarse-to-fine matching pipeline, one pair or a packed batch.
 
 Counterpart of roitr_tpu/models/roitr.py (reference model/RIGA_v2.py:10-180):
 backbone -> descriptor projections -> point-to-node partition -> GT patch
 correspondences (`with_gt`) -> coarse matching -> patch gathering ->
 Sinkhorn OT -> fine matching, with fixed-size buffers and masks wherever
 the reference is ragged. Outputs carry the JAX forward's keys. Training
-(`train=True`) takes sampled GT patches and a differentiable OT. Packed
-batches belong to a later slice of the port.
+(`train=True`) takes sampled GT patches and a differentiable OT. A packed
+batch of B pairs (data/packing.py) runs as one forward whose outputs carry
+a leading B (`_forward_packed`); packed training is a later slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +39,9 @@ class PairInputs(NamedTuple):
     """One padded point-cloud pair (prefix-packed), torch tensors.
 
     For rigid benchmarks src_points == src_raw_points; the backbone runs on
-    the raw geometry (reference RIGA_v2.py:58-62)."""
+    the raw geometry (reference RIGA_v2.py:58-62). A packed batch
+    (data/packing.py) has (B * N, ...) point leaves, (B,) counts and a
+    leading B on rot and trans."""
 
     src_points: torch.Tensor  # (N, 3)
     src_raw_points: torch.Tensor  # (N, 3)
@@ -51,6 +54,10 @@ class PairInputs(NamedTuple):
     tgt_count: torch.Tensor  # () int64
     rot: Optional[torch.Tensor] = None  # (3, 3) GT rotation src -> tgt, with_gt only
     trans: Optional[torch.Tensor] = None  # (3, 1) GT translation, with_gt only
+    # geometric pyramids (data/pyramid.py CloudPyramid of tensors on the
+    # pair's device), or None: the backbone then runs FPS and kNN itself
+    src_pyramid: Optional[Any] = None
+    tgt_pyramid: Optional[Any] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -97,11 +104,9 @@ class RoITr(nn.Module):
 
     def __init__(self, cfg: Config, device="cuda", seed: int = 0):
         super().__init__()
-        # cfg.device_prep is read by the callers (Tester, Matcher), which run
-        # ops/pyramid.py device_prep_pair before the forward, as in JAX
-        if cfg.host_pyramid or cfg.packed_batch:
-            raise NotImplementedError(
-                "host_pyramid and packed_batch are not ported yet (a later slice of the port)")
+        # cfg.device_prep, host_pyramid and packed_batch are read by the
+        # callers (datasets, Tester, Matcher), which attach pyramids, pack
+        # pairs and run ops/pyramid.py's device prep before the forward
         if cfg.knn_method != "exact":
             raise NotImplementedError(f"knn_method {cfg.knn_method!r}: the port has exact kNN")
         if cfg.sinkhorn_backend != "pallas":
@@ -138,37 +143,57 @@ class RoITr(nn.Module):
         node correspondences and occlusion scores (needs pair.rot/trans);
         `train` (needs with_gt) samples GT patches with the Gumbel noise of
         the CPU `generator`. Gradients flow as in JAX: not into coarse or
-        fine matching. Callers that want no graph run under torch.no_grad."""
+        fine matching. Callers that want no graph run under torch.no_grad.
+        A packed pair (counts of shape (B,), data/packing.py) goes through
+        `_forward_packed`."""
         if train and not with_gt:
             raise ValueError("training requires with_gt=True")
         if with_gt and (pair.rot is None or pair.trans is None):
             raise ValueError("with_gt=True needs pair.rot and pair.trans")
-        if pair.src_count.ndim != 0:
-            raise NotImplementedError("packed batches are a later slice of the port")
-        cfg = self.cfg
+        if pair.src_count.ndim == 1:
+            return self._forward_packed(pair, train=train, with_gt=with_gt)
+        out = self._backbone_outputs(pair)
+        stage = self._pair_stage(out, pair.rot, pair.trans, train, with_gt, generator)
+        out.update(stage.outputs)
+        out.update(self._ot_and_fine(stage, train))
+        return out
+
+    def _backbone_outputs(self, pair: PairInputs) -> Dict[str, torch.Tensor]:
+        """Backbone and descriptor projections (reference RIGA_v2.py:58-80);
+        flat (B * N, ...) rows for a packed pair."""
         (src_nodes, src_node_feats, src_points, src_point_feats, src_node_count, tgt_nodes,
          tgt_node_feats, tgt_points, tgt_point_feats, tgt_node_count) = self.backbone(
             pair.src_raw_points, pair.src_normals, pair.src_feats, pair.src_count,
-            pair.tgt_points, pair.tgt_normals, pair.tgt_feats, pair.tgt_count, pair.src_points)
-
-        src_node_feats = F.normalize(self.coarse_proj(src_node_feats), dim=-1, eps=1e-12)
-        tgt_node_feats = F.normalize(self.coarse_proj(tgt_node_feats), dim=-1, eps=1e-12)
-        src_point_feats = self.fine_proj(src_point_feats)
-        tgt_point_feats = self.fine_proj(tgt_point_feats)
-        out: Dict[str, torch.Tensor] = {
+            pair.tgt_points, pair.tgt_normals, pair.tgt_feats, pair.tgt_count, pair.src_points,
+            src_pyramid=pair.src_pyramid, tgt_pyramid=pair.tgt_pyramid)
+        return {
             "src_points": src_points, "tgt_points": tgt_points,
             "src_nodes": src_nodes, "tgt_nodes": tgt_nodes,
-            "src_point_feats": src_point_feats, "tgt_point_feats": tgt_point_feats,
-            "src_node_feats": src_node_feats, "tgt_node_feats": tgt_node_feats,
+            "src_point_feats": self.fine_proj(src_point_feats),
+            "tgt_point_feats": self.fine_proj(tgt_point_feats),
+            "src_node_feats": F.normalize(self.coarse_proj(src_node_feats), dim=-1, eps=1e-12),
+            "tgt_node_feats": F.normalize(self.coarse_proj(tgt_node_feats), dim=-1, eps=1e-12),
             "src_count": pair.src_count, "tgt_count": pair.tgt_count,
             "src_node_count": src_node_count, "tgt_node_count": tgt_node_count,
         }
 
+    def _pair_stage(self, out, rot, trans, train: bool, with_gt: bool,
+                    generator: Optional[torch.Generator]) -> "_Stage":
+        """One pair from the backbone's outputs to its patches: partition, GT
+        node correspondences and occlusion, coarse matching, and the
+        per-correspondence patches the OT reads."""
+        cfg = self.cfg
+        src_points, tgt_points = out["src_points"], out["tgt_points"]
+        src_nodes, tgt_nodes = out["src_nodes"], out["tgt_nodes"]
+        src_node_count, tgt_node_count = out["src_node_count"], out["tgt_node_count"]
+        src_count, tgt_count = out["src_count"], out["tgt_count"]
+        res: Dict[str, torch.Tensor] = {}
+
         # point-to-node partition (reference RIGA_v2.py:82-89)
         src_part = point_to_node_partition(src_points, src_nodes, cfg.point_per_patch,
-                                           pair.src_count, src_node_count)
+                                           src_count, src_node_count)
         tgt_part = point_to_node_partition(tgt_points, tgt_nodes, cfg.point_per_patch,
-                                           pair.tgt_count, tgt_node_count)
+                                           tgt_count, tgt_node_count)
         zrow = src_points.new_zeros((1, 3))
         src_padded_points = torch.cat([src_points, zrow])
         tgt_padded_points = torch.cat([tgt_points, zrow])
@@ -180,13 +205,13 @@ class RoITr(nn.Module):
         dev = src_points.device
         if with_gt:
             gt_corr = node_correspondences(
-                tgt_nodes, src_nodes, tgt_node_knn_points, src_node_knn_points, pair.rot,
-                pair.trans, cfg.matching_radius, ref_masks=tgt_part.node_masks,
+                tgt_nodes, src_nodes, tgt_node_knn_points, src_node_knn_points, rot,
+                trans, cfg.matching_radius, ref_masks=tgt_part.node_masks,
                 src_masks=src_part.node_masks, ref_knn_masks=tgt_part.node_knn_masks,
                 src_knn_masks=src_part.node_knn_masks, max_candidates=cfg.max_gt_corr_candidates)
             gt_tgt_occ, gt_src_occ = node_occlusion_score(
                 tgt_part.node_knn_indices, src_part.node_knn_indices, tgt_padded_points,
-                src_padded_points, pair.tgt_count, pair.src_count, pair.rot, pair.trans,
+                src_padded_points, tgt_count, src_count, rot, trans,
                 ref_masks=tgt_part.node_masks, src_masks=src_part.node_masks,
                 ref_knn_masks=tgt_part.node_knn_masks, src_knn_masks=src_part.node_knn_masks)
         else:
@@ -197,19 +222,19 @@ class RoITr(nn.Module):
                 torch.zeros((c,), dtype=torch.bool, device=dev))
             gt_tgt_occ = torch.zeros((tgt_nodes.shape[0],), device=dev)
             gt_src_occ = torch.zeros((src_nodes.shape[0],), device=dev)
-        out["gt_node_corr_indices"] = gt_corr.indices
-        out["gt_node_corr_overlaps"] = gt_corr.overlaps
-        out["gt_node_corr_masks"] = gt_corr.masks
-        out["gt_tgt_node_occ"] = gt_tgt_occ
-        out["gt_src_node_occ"] = gt_src_occ
+        res["gt_node_corr_indices"] = gt_corr.indices
+        res["gt_node_corr_overlaps"] = gt_corr.overlaps
+        res["gt_node_corr_masks"] = gt_corr.masks
+        res["gt_tgt_node_occ"] = gt_tgt_occ
+        res["gt_src_node_occ"] = gt_src_occ
 
         # coarse matching, no gradient (reference RIGA_v2.py:119-126, no_grad)
-        est = coarse_matching(tgt_node_feats.detach(), src_node_feats.detach(),
+        est = coarse_matching(out["tgt_node_feats"].detach(), out["src_node_feats"].detach(),
                               tgt_part.node_masks, src_part.node_masks, cfg.num_est_coarse_corr,
                               dual_normalization=True)
-        out["tgt_node_corr_indices"] = est.ref_indices
-        out["src_node_corr_indices"] = est.src_indices
-        out["node_corr_masks"] = est.masks
+        res["tgt_node_corr_indices"] = est.ref_indices
+        res["src_node_corr_indices"] = est.src_indices
+        res["node_corr_masks"] = est.masks
         if train:  # sampled GT patches (reference RIGA_v2.py:125-126)
             corr = gt_coarse_corr_generator(gt_corr.indices, gt_corr.overlaps, gt_corr.masks,
                                             cfg.num_gt_coarse_corr,
@@ -221,25 +246,30 @@ class RoITr(nn.Module):
         tgt_idx, src_idx = corr.ref_indices, corr.src_indices
         src_knn_idx = src_part.node_knn_indices[src_idx]  # (P, K)
         tgt_knn_idx = tgt_part.node_knn_indices[tgt_idx]
-        src_knn_masks = src_part.node_knn_masks[src_idx] & corr.masks[:, None]
-        tgt_knn_masks = tgt_part.node_knn_masks[tgt_idx] & corr.masks[:, None]
-        src_knn_points = src_node_knn_points[src_idx]  # (P, K, 3)
-        tgt_knn_points = tgt_node_knn_points[tgt_idx]
+        res["src_node_corr_knn_points"] = src_node_knn_points[src_idx]  # (P, K, 3)
+        res["tgt_node_corr_knn_points"] = tgt_node_knn_points[tgt_idx]
+        res["src_node_corr_knn_masks"] = src_part.node_knn_masks[src_idx] & corr.masks[:, None]
+        res["tgt_node_corr_knn_masks"] = tgt_part.node_knn_masks[tgt_idx] & corr.masks[:, None]
+        src_point_feats, tgt_point_feats = out["src_point_feats"], out["tgt_point_feats"]
         zfeat = src_point_feats.new_zeros((1, src_point_feats.shape[-1]))
         src_knn_feats = torch.cat([src_point_feats, zfeat])[src_knn_idx]  # (P, K, C)
         tgt_knn_feats = torch.cat([tgt_point_feats, zfeat])[tgt_knn_idx]
-        out["src_node_corr_knn_points"] = src_knn_points
-        out["tgt_node_corr_knn_points"] = tgt_knn_points
-        out["src_node_corr_knn_masks"] = src_knn_masks
-        out["tgt_node_corr_knn_masks"] = tgt_knn_masks
+        return _Stage(res, src_knn_feats, tgt_knn_feats, corr.masks, corr.scores)
 
+    def _ot_and_fine(self, stage: "_Stage", train: bool) -> Dict[str, torch.Tensor]:
+        """Patch OT and fine matching over the stage's P patches (all B * P
+        of a packed batch at once: one Sinkhorn launch)."""
+        cfg = self.cfg
+        o = stage.outputs
+        tgt_knn_points, src_knn_points = o["tgt_node_corr_knn_points"], o["src_node_corr_knn_points"]
+        tgt_knn_masks, src_knn_masks = o["tgt_node_corr_knn_masks"], o["src_node_corr_knn_masks"]
         # optimal transport (reference :150-153); rows: tgt, cols: src
-        ch = src_point_feats.shape[-1]
-        matching_scores = torch.einsum("pnc,pmc->pnm", tgt_knn_feats, src_knn_feats) / ch ** 0.5
+        ch = stage.src_knn_feats.shape[-1]
+        matching_scores = torch.einsum("pnc,pmc->pnm", stage.tgt_knn_feats,
+                                       stage.src_knn_feats) / ch ** 0.5
         matching_scores = log_sinkhorn_ot(
             matching_scores, tgt_knn_masks, src_knn_masks, self.optimal_transport.alpha,
             num_iter=cfg.sinkhorn_iters, tol=cfg.sinkhorn_tol, differentiable=train)
-        out["matching_scores"] = matching_scores
 
         # fine matching (reference :158-169), no gradient; the exact path in
         # training, as the JAX train step takes it
@@ -247,13 +277,63 @@ class RoITr(nn.Module):
         if not cfg.fine_matching_use_dustbin:
             scores = scores[:, :-1, :-1]
         fine = fine_matching(
-            tgt_knn_points, src_knn_points, tgt_knn_masks, src_knn_masks, scores, corr.masks,
-            global_scores=corr.scores, k=cfg.fine_matching_topk, mutual=cfg.fine_matching_mutual,
+            tgt_knn_points, src_knn_points, tgt_knn_masks, src_knn_masks, scores,
+            stage.corr_masks, global_scores=stage.corr_scores, k=cfg.fine_matching_topk,
+            mutual=cfg.fine_matching_mutual,
             confidence_threshold=cfg.fine_matching_confidence_threshold,
             use_global_score=cfg.fine_matching_use_global_score,
             use_dustbin=cfg.fine_matching_use_dustbin, allow_fast=not train)
-        out["tgt_corr_points"] = fine.ref_points
-        out["src_corr_points"] = fine.src_points
-        out["corr_scores"] = fine.scores
-        out["corr_masks"] = fine.masks
+        return {"matching_scores": matching_scores, "tgt_corr_points": fine.ref_points,
+                "src_corr_points": fine.src_points, "corr_scores": fine.scores,
+                "corr_masks": fine.masks}
+
+    def _forward_packed(self, pair: PairInputs, train: bool = False,
+                        with_gt: bool = False) -> Dict[str, torch.Tensor]:
+        """Packed forward (roitr_tpu/models/roitr.py `_forward_packed`): B
+        same-bucket pairs as one flat cloud a side (data/packing.py), with
+        their pyramids. The point levels run flat on the pyramids' offset
+        indices; the global transformer on (B, m4, ...) views, one
+        embedding and one RPE attention launch a layer for all B pairs.
+        Partition, GT node correspondences and occlusion, coarse matching
+        and the patch gathers (`_pair_stage`) run in a Python loop over B on
+        free (B, ...) views; the OT runs over all B * P patches in one
+        Sinkhorn launch and fine matching flat over them. Every output
+        gains a leading B; slice b is the single-pair forward of pair b.
+        Packed training (the Gumbel sampling per pair and the backward
+        kernels' pair axis) is the next slice of the port."""
+        if train:
+            raise NotImplementedError("packed training is the next slice of the port: "
+                                      "one pair a train step")
+        b = pair.src_count.shape[0]
+        flat = self._backbone_outputs(pair)
+        counts = ("src_count", "tgt_count", "src_node_count", "tgt_node_count")
+        views = {k: (v if k in counts else v.reshape(b, v.shape[0] // b, *v.shape[1:]))
+                 for k, v in flat.items()}
+        pick = lambda t, i: None if t is None else t[i]
+        stages = [self._pair_stage({k: v[i] for k, v in views.items()}, pick(pair.rot, i),
+                                   pick(pair.trans, i), False, with_gt, None) for i in range(b)]
+        out = dict(views)
+        out.update({k: torch.stack([st.outputs[k] for st in stages]) for k in stages[0].outputs})
+        # the OT and fine matching take the B * P patches as one flat batch
+        patches = _Stage({k: torch.cat([st.outputs[k] for st in stages]) for k in _PATCH_KEYS},
+                         *(torch.cat([getattr(st, f) for st in stages])
+                           for f in _Stage._fields[1:]))
+        out.update({k: v.reshape(b, -1, *v.shape[1:])
+                    for k, v in self._ot_and_fine(patches, train=False).items()})
         return out
+
+
+# the stage outputs that describe the patches (read by the OT's fine matching)
+_PATCH_KEYS = ("src_node_corr_knn_points", "tgt_node_corr_knn_points",
+               "src_node_corr_knn_masks", "tgt_node_corr_knn_masks")
+
+
+class _Stage(NamedTuple):
+    """What `_pair_stage` hands the OT: its output entries, the patches'
+    point features (P, K, C) and the correspondences' masks and scores."""
+
+    outputs: Dict[str, torch.Tensor]
+    src_knn_feats: torch.Tensor
+    tgt_knn_feats: torch.Tensor
+    corr_masks: torch.Tensor
+    corr_scores: torch.Tensor

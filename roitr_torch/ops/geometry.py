@@ -15,14 +15,28 @@ _INF = 1e10
 
 
 def prefix_mask(n: int, count, device=None) -> torch.Tensor:
-    """Boolean validity mask (n,) for a prefix-packed axis of length n."""
+    """Boolean validity mask (n,) for a prefix-packed axis of length n.
+
+    `count` may be a (B,) vector for a packed batch (data/packing.py): the
+    axis is then B aligned segments of n // B rows, each prefix-packed with
+    its own count, and the mask is still flat (n,)."""
     count = torch.as_tensor(count, device=device)
+    if count.ndim == 1:
+        seg = n // count.shape[0]
+        return (torch.arange(seg, device=count.device)[None, :] < count[:, None]).reshape(n)
     return torch.arange(n, device=count.device) < count
 
 
-def index_valid(idx: torch.Tensor, count) -> torch.Tensor:
-    """Validity of row indices into a prefix-packed axis: idx < count."""
-    return idx < torch.as_tensor(count, device=idx.device)
+def index_valid(idx: torch.Tensor, count, level_size: int = 0) -> torch.Tensor:
+    """Validity of row indices into a prefix-packed axis: idx < count. For a
+    (B,) `count` (packed batch) the axis is B segments of level_size // B
+    rows, and an index is valid when its offset within its segment is below
+    that segment's count."""
+    count = torch.as_tensor(count, device=idx.device)
+    if count.ndim == 1:
+        seg = level_size // count.shape[0]
+        return (idx % seg) < count[idx // seg]
+    return idx < count
 
 
 def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor, normalized: bool = False) -> torch.Tensor:

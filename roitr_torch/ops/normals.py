@@ -105,3 +105,24 @@ def estimate_normals(points: torch.Tensor, count, k: int = 33,
     slot_valid = torch.arange(idx.shape[1], device=points.device)[None, :] < count
     return _pca_normals(points, points[idx], prefix_mask(points.shape[0], count), slot_valid,
                         view_point)
+
+
+def estimate_normals_segmented(points: torch.Tensor, counts: torch.Tensor, k: int = 33,
+                               view_point=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """Normals of a packed flat cloud: points (B * N, 3), B same-bucket
+    clouds with counts (B,) valid rows each -> (B * N, 3), pad rows zero.
+    Each segment's kNN searches its own rows only (one search batched over
+    B); the neighbourhood gather is one flat row gather on segment-offset
+    indices, and the PCA runs on all B * N rows at once (JAX
+    roitr_tpu/ops/normals.py `estimate_normals_segmented`)."""
+    b = counts.shape[0]
+    n = points.shape[0] // b
+    counts = counts.to(points.device)
+    idx, _ = masked_knn(points.reshape(b, n, 3), points.reshape(b, n, 3), counts, k)
+    offset = (torch.arange(b, device=points.device) * n)[:, None, None]
+    flat_idx = (idx + offset).reshape(b * n, -1)
+    kk = idx.shape[-1]
+    slot_valid = (torch.arange(kk, device=points.device)[None, None, :]
+                  < counts[:, None, None]).expand(b, n, kk).reshape(b * n, kk)
+    return _pca_normals(points, points[flat_idx], prefix_mask(points.shape[0], counts),
+                        slot_valid, view_point)

@@ -672,3 +672,132 @@ def test_matcher_device_prep_on_card(dev):
     assert out["tgt_point_desc"].shape == (430, 256)
     for v in out.values():
         assert np.isfinite(v).all()
+
+
+@pytest.mark.parametrize("b,n,d,h,dtype,valid", [
+    (8, 16, 256, 4, torch.bfloat16, (16, 15, 12, 9, 16, 4, 1, 13)),  # coarse level of 1024
+    (3, 40, 64, 8, torch.float32, (40, 0, 23)),  # a pair with no valid key
+    (2, 100, 64, 2, torch.bfloat16, (100, 37)),
+])
+def test_rpe_attention_kernel_pair_axis(dev, b, n, d, h, dtype, valid):
+    """One launch for B pairs: against the plain version with the pair
+    axis, and bit-equal to B per-pair launches; the log-sum-exps too."""
+    g = torch.Generator().manual_seed(b * n)
+    q2, k2, v2 = (torch.randn(b, n, d, generator=g).to(dev) for _ in range(3))
+    qwp = (torch.randn(b, n, h, d, generator=g) * 0.1).to(dev)
+    embed = torch.randn(b, n, n, d, generator=g).to(dev, dtype)
+    mask = (torch.arange(n)[None, :] < torch.tensor(valid)[:, None]).float().to(dev)
+    args = (q2, k2, v2, qwp, embed, mask)
+    got = _launched("rpe_attention", lambda: fused_rpe_self_attention(*args, with_lse=True))
+    ref = rpe_attention_plain(*args, with_lse=True)
+    for a, r in zip(got[:2], ref[:2]):
+        _close(a, r)
+    for a, r in zip(got[2:], ref[2:]):
+        ok = torch.isfinite(r)
+        assert torch.equal(torch.isfinite(a), ok)
+        _close(a[ok], r[ok])
+    for i in range(b):
+        one = fused_rpe_self_attention(*(t[i] for t in args), with_lse=True)
+        assert all(torch.equal(x[i], y) for x, y in zip(got, one)), i
+
+
+def test_rpe_attention_kernel_batch_of_one_is_the_pair_entry(dev):
+    """(1, N, D) inputs give bit for bit what the one-pair entry gives."""
+    g = torch.Generator().manual_seed(3)
+    n, d, h = 64, 256, 4
+    q2, k2, v2 = (torch.randn(n, d, generator=g).to(dev) for _ in range(3))
+    qwp = (torch.randn(n, h, d, generator=g) * 0.1).to(dev)
+    embed = torch.randn(n, n, d, generator=g).to(dev, torch.bfloat16)
+    mask = (torch.arange(n) < 50).float().to(dev)
+    args = (q2, k2, v2, qwp, embed, mask)
+    one = fused_rpe_self_attention(*args, with_lse=True)
+    batched = fused_rpe_self_attention(*(t[None] for t in args), with_lse=True)
+    assert all(torch.equal(x[0], y) for x, y in zip(batched, one))
+
+
+def test_fps_kernel_two_b_clouds(dev):
+    """The packed device prep's FPS: both sides of 8 pairs, 16 clouds of the
+    1024 bucket with mixed counts, in one launch."""
+    rng = np.random.RandomState(16)
+    counts = rng.randint(600, 1025, size=16)
+    pts = np.zeros((16, 1024, 3), np.float32)
+    for i, c in enumerate(counts):
+        pts[i, :c] = rng.rand(c, 3)
+    p = torch.from_numpy(pts).to(dev)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    got = _launched("fps", lambda: fps_pairs(p, c, 256))
+    assert torch.equal(got, fps_plain(p, c, 256))
+
+
+@pytest.mark.parametrize("prep", ["host", "device"])
+def test_match_batch_packed_on_card(dev, prep):
+    """Matcher.match_batch, packed, 8 pairs of 600-1000 points in the 1024
+    bucket on the card against match of each pair on the card: each forward
+    kernel launched once a layer for the batch (no FPS under host pyramids).
+    The packed forward against the single-pair forward: node descriptors
+    within cos 0.9999, at most 5% of the coarse correspondences apart, and
+    on the shared ones the OT scores within 1e-4. The packed forward's
+    products (B * N rows) round apart from the single-pair forward's, and
+    with random weights the OT plan is near uniform, so fine top-k picks at
+    near-ties (~1e-7) go either way: each result's kept correspondences
+    within 5% of their union plus point_per_patch * fine_matching_topk for
+    each coarse correspondence the two forwards do not share. The 5% comes
+    from tools/torch_packed_near_ties.py on an H100 80GB HBM3 (16 data
+    seeds x 8 pairs, both preps): at most 2.9% apart, median 1.5%, no
+    coarse correspondence apart, OT scores within 9.6e-6."""
+    from roitr_torch.config import Config
+    from roitr_torch.data.packing import pack_pairs
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
+    from roitr_torch.serving import Matcher
+    from roitr_torch.utils.packing import to_device
+
+    cfg = Config(benchmark="3DMatch", buckets=(1024,), points_limit=1024,
+                 host_pyramid=prep == "host", fine_matching_confidence_threshold=0.0)
+    matcher = Matcher(cfg, RoITr(cfg, device="cpu", seed=1).state_dict(), prep=prep)
+    rng = np.random.RandomState(9)
+    clouds = []
+    for _ in range(8):
+        n, m = rng.randint(600, 1001, size=2)
+        arr = make_pair_arrays(rng, 1024, n, m)
+        clouds.append((arr["src_points"][:n], arr["tgt_points"][:m]))
+    kernels.reset_launch_counts()
+    got = matcher.match_batch(clouds, batch_size=8, mode="packed")
+    want = {"fps": 3 if prep == "device" else 0, "geo_embedding": 2, "rpe_attention": 6,
+            "sinkhorn": 1}
+    assert {k: kernels.launch_counts[k] for k in want} == want, kernels.launch_counts
+
+    est = (prep == "device",) * 2
+    pairs = [matcher._prepare(src, tgt, None, None)[0] for src, tgt in clouds]
+    # {(tgt node, src node): slot} of the kept coarse correspondences
+    corr = lambda o: {(int(t), int(s)): j for j, (t, s, k) in enumerate(zip(
+        o["tgt_node_corr_indices"], o["src_node_corr_indices"], o["node_corr_masks"])) if k}
+    cos = torch.nn.functional.cosine_similarity
+    with torch.no_grad():
+        batch = to_device(pack_pairs(pairs, require_pyramids=prep == "host"), dev)
+        packed = matcher.model(device_prep_packed(batch, cfg, est,
+                                                  pyramid=batch.src_pyramid is None))
+        flips, total = [], 0
+        for i, pair in enumerate(pairs):
+            one = matcher.model(device_prep_pair(to_device(pair, dev), cfg, est))
+            mine = {k: v[i] for k, v in packed.items()}
+            a, b = corr(mine), corr(one)
+            flips.append(len(a.keys() ^ b.keys()))
+            total += len(b)
+            for key in a.keys() & b.keys():
+                x, y = mine["matching_scores"][a[key]], one["matching_scores"][b[key]]
+                err = torch.where(y > -1e5, (x - y).abs(), torch.zeros_like(y))
+                assert float(err.max()) <= 1e-4, (i, key)
+            for side in ("src", "tgt"):
+                nc = int(one[f"{side}_node_count"])
+                assert float(cos(mine[f"{side}_node_feats"][:nc],
+                                 one[f"{side}_node_feats"][:nc]).min()) >= 0.9999
+    assert sum(flips) <= 0.05 * total, flips
+    per_flip = cfg.point_per_patch * cfg.fine_matching_topk
+    for i, (src, tgt) in enumerate(clouds):
+        ref = matcher.match(src, tgt)
+        assert np.isfinite(got[i]["confidence"]).all()
+        g, w = (set(map(tuple, np.concatenate([r["src_corr_pts"], r["tgt_corr_pts"]], 1)
+                        .tolist())) for r in (got[i], ref))
+        assert len(g ^ w) <= 0.05 * len(g | w) + flips[i] * per_flip, (i, len(g ^ w), flips)

@@ -75,10 +75,33 @@ def test_preprocess_pair_matches_jax(mode):
 
 
 def test_preprocess_pair_refuses_host_pyramids():
+    """`build_pyramid` builds both clouds' host pyramids as JAX does: the
+    source side on the raw source geometry, none under device prep. Here
+    the JAX package takes its scipy path (native turned off above), the
+    port its native library: indices equal, upsampling weights within 1e-6
+    (float32 against float64 distances); tests/test_torch_pyramid.py holds
+    the two native paths bit for bit."""
+    from roitr_torch.data.pyramid import CloudPyramid
+
     src, tgt, rot, trans = _clouds(4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        preprocess_pair(np.random.RandomState(0), src, tgt, rot, trans, buckets=(512,),
-                        build_pyramid=True)
+    kw = dict(buckets=(512,), normal_knn=9, build_pyramid=True,
+              src_raw_pcd=src * 1.5)
+    got = preprocess_pair(np.random.RandomState(0), src, tgt, rot, trans, **kw)
+    want = jax_preprocess_pair(np.random.RandomState(0), src, tgt, rot, trans, **kw)
+    pyramids = ("src_pyramid", "tgt_pyramid")
+    assert_items_equal({k: v for k, v in got.items() if k not in pyramids},
+                       {k: v for k, v in want.items() if k not in pyramids})
+    for side in pyramids:
+        for name in CloudPyramid._fields:
+            g, w = getattr(got[side], name), getattr(want[side], name)
+            assert g.dtype == w.dtype and g.shape == w.shape, (side, name)
+            if name.startswith("up_w"):
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=f"{side} {name}")
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=f"{side} {name}")
+    dev = preprocess_pair(np.random.RandomState(0), src, tgt, rot, trans, device_prep=True,
+                          **kw)
+    assert not set(pyramids) & set(dev)
 
 
 @pytest.fixture

@@ -45,7 +45,14 @@ from roitr_tpu.eval import tester as jax_tester
 from roitr_tpu.models.roitr import RoITr as JaxRoITr
 from roitr_tpu.ops.pyramid import device_prep_pair as jax_device_prep_pair
 
-from torch_parity import TINY, jax_pair, port_and_params, torch_pair
+from torch_parity import (
+    TINY,
+    jax_pair,
+    one_thread,
+    port_and_params,
+    same_correspondences,
+    torch_pair,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 COUNTS = ((480, 400), (450, 470))
@@ -345,10 +352,70 @@ def test_a_failure_leaves_no_thread_and_no_queued_dump(tmp_path, monkeypatch, wh
 
 @pytest.mark.parametrize("option", [dict(dp_size=2), dict(packed_batch=True)])
 def test_tester_refuses_later_slices(tmp_path, monkeypatch, option):
+    """dp_size > 1 is refused (DDP is a later slice). packed_batch is
+    ported: over three pairs in packs of two (a full pack and a ragged tail
+    of one), with host pyramids and with device prep
+    in full and c2f dumps, the dumps equal the single-pair Tester's file by
+    file: the same keys, dtypes and shapes, arrays within rtol 1e-4 / atol
+    1e-5 (the packed forward's larger products round differently), the
+    correspondence rows as sets with near-ties of random weights allowed
+    (tests/torch_parity.py `same_correspondences`). Without host
+    pyramids or device prep a packed Tester is refused, as JAX's is."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PortTester(Config(**SMALL, **option), dataset=SyntheticPairs(1, 128), device="cpu",
-               state_dict={})
+    if "dp_size" in option:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            PortTester(Config(**SMALL, **option), dataset=SyntheticPairs(1, 128), device="cpu",
+                       state_dict={})
+        return
+    with pytest.raises(ValueError, match="host_pyramid or device_prep"):
+        PortTester(Config(**SMALL, batch_size=2, **option), dataset=SyntheticPairs(1, 128),
+                   device="cpu", state_dict={})
+    with one_thread():
+        _packed_tester_dumps_equal_single(option)
+
+
+def _packed_tester_dumps_equal_single(option):
+    state_dict = port_and_params(0, **SMALL)[1].state_dict()
+    for kw in (dict(host_pyramid=True), dict(device_prep=True),
+               dict(device_prep=True, dump_mode="c2f")):
+        base = Config(**SMALL, **kw)
+        dumps = {}
+        for name, cfg in (("single", base.replace(exp_dir="single")),
+                          ("packed", base.replace(exp_dir="packed", batch_size=2, **option))):
+            ds = SyntheticPairs(3, 128, counts=(90, 128), normal_knn=9)
+            if cfg.host_pyramid:
+                from roitr_torch.data.pyramid import build_cloud_pyramid
+
+                items = [ds[i] for i in range(3)]
+                for item in items:
+                    item["src_pyramid"] = build_cloud_pyramid(item["src_raw_points"],
+                                                              item["src_count"])
+                    item["tgt_pyramid"] = build_cloud_pyramid(item["tgt_points"],
+                                                              item["tgt_count"])
+                ds = items
+            tester = PortTester(cfg, dataset=ds, device="cpu", state_dict=state_dict)
+            shapes = []
+            tester.model.register_forward_pre_hook(
+                lambda _, args: shapes.append(tuple(args[0].src_count.shape)))
+            tester.test()
+            # the ragged tail runs as a pack of one, not padded
+            assert shapes == ([(2,), (1,)] if name == "packed" else [()] * 3), (name, shapes)
+            dumps[name] = [torch.load(os.path.join(tester.snapshot_dir, f"{i}.pth"),
+                                      weights_only=False) for i in range(3)]
+            assert sorted(os.listdir(tester.snapshot_dir)) == ["0.pth", "1.pth", "2.pth"]
+        for i, (single, packed) in enumerate(zip(dumps["single"], dumps["packed"])):
+            tag = f"{kw} pair {i}"
+            assert set(single) == set(packed), tag
+            corr = ("src_corr_pts", "tgt_corr_pts", "confidence")
+            for key, want in single.items():
+                got = packed[key]
+                assert got.dtype == want.dtype and got.shape[1:] == want.shape[1:], (tag, key)
+                if key in corr:
+                    continue
+                assert got.shape == want.shape, (tag, key)
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5, msg=f"{tag} {key}")
+            same_correspondences(*((d[k].numpy() for k in corr) for d in (packed, single)),
+                                 tag)
 
 
 def test_tester_checks_its_arguments(tmp_path, monkeypatch):

@@ -5,7 +5,10 @@ port is initialised from a seed and its state_dict converted into JAX
 params with the JAX package's own converter.
 """
 
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 
 from roitr_torch.data.preprocess import estimate_normals_np, normal_redirect_np
@@ -80,3 +83,45 @@ def port_and_params(seed: int = 0, **cfg_kw):
                                         transformer_architecture=tuple(tcfg.transformer_architecture),
                                         enc_blocks=tuple(tcfg.enc_blocks))
     return tcfg, model, jcfg, params
+
+
+def _rows(src, tgt, conf):
+    """{(src xyz, tgt xyz): confidence} of kept correspondences."""
+    keys = np.concatenate([src, tgt], axis=1)
+    return {tuple(k): c for k, c in zip(keys.tolist(), np.asarray(conf).tolist())}
+
+
+def same_correspondences(got, want, tag):
+    """Kept correspondences as sets, as tests/test_torch_pipeline.py's
+    Matcher test compares them. With random weights the OT plan is near
+    uniform, so a row's top-k picks among partners whose logits differ by
+    ~1e-7, and the packed forward's larger products (B * N rows) round some
+    of those near-ties the other way (a mutual top-k test may then keep
+    one row more or less): the (src, tgt) pairs may differ in at most 2% of
+    their union, and the shared pairs' confidences agree within tolerance."""
+    g, w = _rows(*got), _rows(*want)
+    assert len(set(g) ^ set(w)) <= 0.02 * len(set(g) | set(w)), tag
+    shared = sorted(set(g) & set(w))
+    np.testing.assert_allclose([g[k] for k in shared], [w[k] for k in shared], rtol=1e-4,
+                               atol=1e-5, err_msg=tag)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread for the block. The suite runs several
+    test processes on one machine; the port's many small CPU ops are no
+    slower on one thread alone and far faster than several threads each
+    contending for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """one_thread for a whole test module (import it into the module)."""
+    with one_thread():
+        yield

@@ -218,10 +218,18 @@ def main() -> int:
     vp = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
     new_api = {name: hasattr(lib, "roitr_rpe_attention_bwd_takes") for name, lib in libs.items()}
+    # the current source's forward takes a pair count before N; --baseline
+    # sources (and their edits) predate it
+    batch_api = {name: not name.startswith("baseline") for name in libs}
 
     def forward(lib, name, with_lse=True):
         fn = lib.roitr_rpe_attention
-        if new_api[name]:
+        if batch_api[name]:
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lse = (vp(lse_a), vp(lse_p)) if with_lse else (None, None)
+            err = fn(vp(q2), vp(k2), vp(v2), vp(qwp), vp(embed), vp(mask), vp(hid), vp(ae), *lse,
+                     1, N, D, H, 1, stream())
+        elif new_api[name]:
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             lse = (vp(lse_a), vp(lse_p)) if with_lse else (None, None)
             err = fn(vp(q2), vp(k2), vp(v2), vp(qwp), vp(embed), vp(mask), vp(hid), vp(ae), *lse,
