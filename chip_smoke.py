@@ -17,7 +17,10 @@ Phases, each of which exits non-zero on failure:
                exact, the others within stated tolerances), timed with CUDA
                events; Sinkhorn's forward also with its trajectory output
                and against a float64 loop, its backward from that
-               trajectory (training's) and making its own
+               trajectory (training's) and making its own; the RPE
+               attention forward and backward also with a pair axis (B 8 at
+               N 16, B 2 at N 512; bit-equal to one-pair launches), and
+               rows 2, 7, 4 and 5 at a packed train step's shapes
   4. forward   one seeded pair at the 4096 bucket through RoITr on the card
                (kernels) and on the CPU (plain versions), same weights
   5. serving   Matcher.match at full 3DMatch width on three synthetic pairs
@@ -57,6 +60,16 @@ Phases, each of which exits non-zero on failure:
                20k-30k points (bucket 32768), in a temporary directory;
                counters zeroed before and read after, and all seven kernels
                must have run
+  11. packed training  the same Trainer with packed_batch, batch_size 8 and
+               host pyramids: 3 packed train steps and 1 packed validation
+               step on pairs of 600-1000 points (bucket 1024); counters
+               zeroed before and read after, launches required exactly (one a
+               layer or side for all 8 pairs, no FPS); step ms split three
+               ways, pairs/s, peak memory; then one packed step of 8 pairs
+               against 8 single-pair steps of the same pairs, in turns
+  12. packed train parity  a packed batch of 4 such pairs at full width:
+               the card's gradient against the CPU's, and against the mean
+               of the 4 single-pair gradients on the card
 It then prints one JSON line with each kernel's numbers, the card's name
 and power limit, and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -436,12 +449,9 @@ def phase_kernels(rng):
     plain_ms = cuda_ms(lambda: rpe_attention_bwd_plain(*args), 3)
     rows["rpe_attention_bwd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        # the embedding read once and its gradient written once (bf16), the
-        # rest fp32: q2 k2 v2 ghid hidden dq dk dv (N, D), qwp gae ae dqwp
-        # (N, H, D), the two log-sum-exps (N, H), mask
-        bytes=2 * n * n * d * 2 + 4 * (8 * n * d + 4 * n * h * d + 2 * n * h + n),
-        # forward recompute (scores) and the eight products of the backward
-        flops=2.0 * n * n * d * (5 * h + 5))
+        bytes=rpe_bwd_bytes(1, n, d, h, 2), flops=rpe_bwd_flops(1, n, d, h))
+    rpe_attention_bwd_pair_axis(gen)
+    packed_shapes(gen)
 
     # ---- Sinkhorn: (256, 65, 65) x 100, the serving shape (the line kernel)
     p, kk, iters = 256, 64, 100
@@ -593,6 +603,150 @@ def rpe_attention_pair_axis(gen):
         if not (err <= 1e-4 * top and same):
             fail(f"rpe_attention with a pair axis of {b} outside tolerance or not equal to "
                  "one-pair launches")
+
+
+def rpe_bwd_bytes(b, n, d, h, esize):
+    """Bytes row 6 must move for b pairs: the embedding read once and its
+    gradient written once (esize bytes an element), the rest fp32: q2 k2
+    v2 ghid hidden dq dk dv (N, D), qwp gae ae dqwp (N, H, D), the two
+    log-sum-exps (N, H), mask."""
+    return b * (2 * n * n * d * esize + 4 * (8 * n * d + 4 * n * h * d + 2 * n * h + n))
+
+
+def rpe_bwd_flops(b, n, d, h):
+    """The forward recompute (scores) and the eight products of the
+    backward, b pairs."""
+    return b * 2.0 * n * n * d * (5 * h + 5)
+
+
+def rpe_attention_bwd_pair_axis(gen):
+    """Row 6 with a pair axis, packed training's launch: B = 8 pairs of the
+    1024 bucket's coarse level (N 16, mixed valid counts) and B = 2 at
+    N 512; D 256, H 4, bf16 and fp32 embeddings, given the forward's saved
+    outputs as training gives them. Against rpe_attention_bwd_plain with the
+    pair axis (fp32 within 1e-4 of the largest value, a bf16 embedding
+    gradient within one bf16 step), bit-equal to B one-pair launches, and
+    B = 1 bit-equal to the one-pair entry; one batched launch and B
+    one-pair launches timed."""
+    from roitr_torch.kernels.rpe_attention_kernel import (
+        fused_rpe_self_attention,
+        rpe_attention_bwd,
+        rpe_attention_bwd_plain,
+    )
+
+    dev = torch.device("cuda")
+    d, h = 256, 4
+    names = ("dq", "dk", "dv", "dqwp", "demb")
+    for b, n, valid in ((8, 16, (16, 15, 12, 9, 16, 4, 1, 13)), (2, 512, (512, 430))):
+        for dtype in (torch.bfloat16, torch.float32):
+            q2, k2, v2, ghid = (torch.randn(b, n, d, generator=gen).to(dev) for _ in range(4))
+            qwp = (torch.randn(b, n, h, d, generator=gen) * 0.1).to(dev)
+            gae = torch.randn(b, n, h, d, generator=gen).to(dev)
+            embed = torch.randn(b, n, n, d, generator=gen).to(dev, dtype)
+            mask = (torch.arange(n)[None, :] < torch.tensor(valid)[:, None]).float().to(dev)
+            args = (q2, k2, v2, qwp, embed, mask, ghid, gae)
+            fwd = fused_rpe_self_attention(*args[:6], with_lse=True)
+            got = rpe_attention_bwd(*args, *fwd)
+            ref = rpe_attention_bwd_plain(*args)
+            errs = []
+            for name, a, r in zip(names, got, ref):
+                e, top = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+                tol = top / 128 if a.dtype == torch.bfloat16 else 1e-4 * top
+                errs.append(f"{name} {e:.3g} (tol {tol:.3g})")
+                if not e <= tol:
+                    fail(f"rpe_attention_bwd with a pair axis of {b} outside tolerance in {name}")
+            pair_args = [tuple(t[i] for t in args) + tuple(f[i] for f in fwd) for i in range(b)]
+            per_pair = [rpe_attention_bwd(*a) for a in pair_args]
+            same = all(torch.equal(got[j][i], per_pair[i][j]) for i in range(b) for j in range(5))
+            one = rpe_attention_bwd(*(t[:1] for t in args), *(f[:1] for f in fwd))
+            same_one = all(torch.equal(x[0], y) for x, y in zip(one, per_pair[0]))
+            ms = cuda_ms(lambda: rpe_attention_bwd(*args, *fwd), 20)
+            pair_ms = cuda_ms(lambda: [rpe_attention_bwd(*a) for a in pair_args], 20)
+            plain_ms = cuda_ms(lambda: rpe_attention_bwd_plain(*args), 3)
+            esize = 2 if dtype == torch.bfloat16 else 4
+            b_ms, b_by = bound(rpe_bwd_bytes(b, n, d, h, esize), rpe_bwd_flops(b, n, d, h))
+            print(f"[kernels] rpe_attention_bwd pair axis B={b} N={n} D={d} H={h} "
+                  f"{'bf16' if esize == 2 else 'fp32'} embedding, valid {valid}: max abs err "
+                  f"{'; '.join(errs)}; bit-equal to {b} one-pair launches: {same}; B=1 bit-equal "
+                  f"to the one-pair entry: {same_one}; one batched launch {ms:.4f} ms, {b} "
+                  f"one-pair launches {pair_ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+            if not (same and same_one):
+                fail(f"rpe_attention_bwd with a pair axis of {b} not equal to one-pair launches")
+            del args, fwd, got, ref, per_pair, pair_args, embed
+
+
+def packed_shapes(gen):
+    """Rows 2, 7, 4 and 5 at a packed training step's shapes (B 8 at the
+    1024 bucket): the geometric embedding and its backward over B * 16^2 =
+    2048 flat rows (H 256, k 3, bf16 out and cotangent), row 7 also against
+    a float64 reduction (ROADMAP Queue 3 "Watch": its chunk count follows
+    R); the Sinkhorn forward with its trajectory and the backward from it
+    over B * 128 = 1024 patches of (65, 65) x 100. Each against its plain
+    version with the tolerances of the single-pair shapes."""
+    from roitr_torch.kernels.geo_embedding_kernel import (
+        fused_geo_embedding,
+        geo_embedding_bwd,
+        geo_embedding_bwd_plain,
+        geo_embedding_plain,
+    )
+    from roitr_torch.kernels.sinkhorn_kernel import sinkhorn_bwd, sinkhorn_bwd_plain, \
+        sinkhorn_iterate, sinkhorn_plain
+    from roitr_torch.ops.sinkhorn import sinkhorn_inputs
+
+    dev = torch.device("cuda")
+    r, k, hid = 8 * 16 * 16, 3, 256
+    d_idx = (torch.rand(r, generator=gen) * 20).to(dev)
+    a_idx = (torch.rand(r, k, generator=gen) * 12).to(dev)
+    w = [((torch.rand(*s, generator=gen) * 2 - 1) / 16).to(dev)
+         for s in ((hid, hid), (hid,), (hid, hid), (hid,))]
+    with torch.no_grad():
+        out, amap = fused_geo_embedding(d_idx, a_idx, *w, out_dtype=torch.bfloat16,
+                                        with_argmax=True)
+        ref = geo_embedding_plain(d_idx, a_idx, *w, out_dtype=torch.bfloat16)
+        err = float((out.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        g = torch.randn(r, hid, generator=gen).to(dev, torch.bfloat16)
+        dgot = geo_embedding_bwd(d_idx, a_idx, amap, g, hid)
+        dref = geo_embedding_bwd_plain(d_idx, a_idx, amap, g, hid)
+        d64 = geo_embedding_bwd_plain(d_idx.double(), a_idx.double(), amap, g.double(), hid)
+        berr = max(float((x - y).abs().max()) for x, y in zip(dgot, dref))
+        btop = max(float(y.abs().max()) for y in dref)
+        rel64 = (max(float((x.double() - y).abs().max()) for x, y in zip(dgot, d64))
+                 / max(float(y.abs().max()) for y in d64))
+        ms = cuda_ms(lambda: fused_geo_embedding(d_idx, a_idx, *w, out_dtype=torch.bfloat16,
+                                                 with_argmax=True), 20)
+        bms = cuda_ms(lambda: geo_embedding_bwd(d_idx, a_idx, amap, g, hid), 20)
+    print(f"[kernels] packed shapes: geo_embedding R={r} H={hid} k={k} (B 8 x 16^2) bf16 max abs "
+          f"err {err:.3g} (tol {top / 128:.3g}), {ms:.4f} ms; geo_embedding_bwd max abs err "
+          f"{berr:.3g} (tol {1e-4 * btop:.3g}), against float64 {rel64:.3g} of max|ref| (66 chunks "
+          f"at R 262144: 2.15e-05), {bms:.4f} ms", flush=True)
+    if not (err <= top / 128 and berr <= 1e-4 * btop):
+        fail("geometric embedding kernels outside tolerance at the packed rows")
+
+    p, kk, iters = 8 * 128, 64, 100
+    scores = torch.randn(p, kk, kk, generator=gen).to(dev)
+    rmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
+    cmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
+    padded, log_mu, log_nu, _ = sinkhorn_inputs(scores, rmask, cmask,
+                                                torch.tensor(1.0, device=dev))
+    out, tu, tv = sinkhorn_iterate(padded, log_mu, log_nu, iters, with_traj=True)
+    ref = sinkhorn_plain(padded, log_mu, log_nu, iters)
+    valid = ref > -1e5
+    err = float((out - ref)[valid].abs().max())
+    cot = torch.randn(padded.shape, generator=gen).to(dev) * valid
+    got = sinkhorn_bwd(padded, log_mu, log_nu, cot, iters, traj=(tu, tv))
+    bref = sinkhorn_bwd_plain(padded, log_mu, log_nu, cot, iters)
+    berrs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, bref)]
+    ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, iters, with_traj=True), 20)
+    bms = cuda_ms(lambda: sinkhorn_bwd(padded, log_mu, log_nu, cot, iters, traj=(tu, tv)), 20)
+    print(f"[kernels] packed shapes: sinkhorn ({p}, {kk + 1}, {kk + 1}) x {iters} with the "
+          f"trajectory: max abs err {err:.3g} on valid entries (tol 1e-4), {ms:.4f} ms; "
+          f"sinkhorn_bwd from it: ds, dmu, dnu max abs err / max|ref| "
+          f"{', '.join(f'{e:.3g}' for e in berrs)} (tol 1e-4, 1e-3, 1e-3), {bms:.4f} ms",
+          flush=True)
+    if not (err <= 1e-4 and berrs[0] <= 1e-4 and max(berrs[1:]) <= 1e-3):
+        fail("sinkhorn kernels outside tolerance at the packed patches")
 
 
 def _pair(arr, n, m, device):
@@ -1223,7 +1377,14 @@ def phase_train_parity(cfg, rng):
     lc, gc = _grad_step(RoITr(cfg, device="cpu", seed=0), _pair(arr, 3900, 3600, "cpu"))
     print(f"[train parity] bucket 4096: card step {t_card:.1f} s, CPU step "
           f"{time.time() - t0:.1f} s; losses card {lg} CPU {lc}", flush=True)
-    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+    _compare_grads("[train parity]", "card vs CPU", [lg], gg, [lc], gc)
+
+
+def _compare_grads(phase, tag, lg, gg, lc, gc):
+    """Losses (lists of per-pair dicts) within 1e-3 relative; gradients'
+    cosine over all >= 0.9999 and each parameter's |a - b| within 1e-2 of
+    max(|b|, 1e-3 of the largest |b|); fails otherwise."""
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for a, b in zip(lg, lc) for k in b)
     norms = {k: float(v.norm()) for k, v in gc.items()}
     floor = 1e-3 * max(norms.values())
     worst, worst_key = 0.0, ""
@@ -1231,16 +1392,16 @@ def phase_train_parity(cfg, rng):
         rel = float((gg[k] - gc[k]).norm()) / max(norms[k], floor)
         if rel > worst:
             worst, worst_key = rel, k
-    flat_g = torch.cat([v.flatten() for v in gg.values()])
-    flat_c = torch.cat([v.flatten() for v in gc.values()])
-    cos = float(flat_g @ flat_c / (flat_g.norm() * flat_c.norm()))
+    fg = torch.cat([v.flatten() for v in gg.values()])
+    fc = torch.cat([v.flatten() for v in gc.values()])
+    cos = float(fg @ fc / (fg.norm() * fc.norm()))
     finite = all(torch.isfinite(v).all() for v in gg.values())
-    print(f"[train parity] losses: largest relative difference {loss_err:.3g} (tol 1e-3); "
+    print(f"{phase} {tag}: losses largest relative difference {loss_err:.3g} (tol 1e-3); "
           f"gradients of {len(gc)} parameters: cosine over all {cos:.7f} (tol >= 0.9999), "
-          f"worst |card - CPU| / max(|CPU|, 1e-3 * largest |CPU|) {worst:.3g} in {worst_key} "
-          f"(tol 1e-2); finite on the card: {finite}", flush=True)
+          f"worst |a - b| / max(|b|, 1e-3 * largest |b|) {worst:.3g} in {worst_key} (tol 1e-2); "
+          f"finite {finite}", flush=True)
     if not (finite and loss_err <= 1e-3 and cos >= 0.9999 and worst <= 1e-2):
-        fail("card train step disagrees with the CPU train step")
+        fail(f"{phase} {tag}: gradients or losses disagree")
 
 
 def phase_training(rng):
@@ -1315,6 +1476,213 @@ def phase_training(rng):
     return launches, trainer.step_times, peak
 
 
+class _WithPyramids:
+    """Items of a dataset with both clouds' host pyramids attached, as
+    data/tdmatch.py yields them under cfg.host_pyramid (JAX's
+    tests/test_trainer.py PyramidDataset); built once, up front."""
+
+    def __init__(self, dataset, cfg):
+        from roitr_torch.data.pyramid import build_cloud_pyramid
+
+        kw = dict(strides=tuple(cfg.enc_strides), nsample=tuple(cfg.enc_nsample))
+        self.items = []
+        for i in range(len(dataset)):
+            d = dict(dataset[i])
+            d["src_pyramid"] = build_cloud_pyramid(d["src_raw_points"], int(d["src_count"]), **kw)
+            d["tgt_pyramid"] = build_cloud_pyramid(d["tgt_points"], int(d["tgt_count"]), **kw)
+            self.items.append(d)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+# launches a packed train step of B pairs and a packed validation step:
+# each kernel once a layer or a side for all B pairs, no FPS (host pyramids)
+PACKED_TRAIN_STEP = {"fps": 0, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1,
+                     "sinkhorn_bwd": 1, "rpe_attention_bwd": 6, "geo_embedding_bwd": 2}
+PACKED_VAL_STEP = {"fps": 0, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1,
+                   "sinkhorn_bwd": 0, "rpe_attention_bwd": 0, "geo_embedding_bwd": 0}
+
+
+def _train_cfg(**overrides):
+    from roitr_torch.config import load_config
+
+    return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                    "train", "tdmatch.yaml"), **overrides)
+
+
+def _step_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3
+
+
+def phase_packed_training(rng, single_launches):
+    """Trainer at full 3DMatch width from configs/train/tdmatch.yaml with
+    packed_batch, batch_size 8 and host pyramids: 24 synthetic pairs of
+    600-1000 points in the 1024 bucket (3 packed train steps) and 8 for
+    validation (1 packed step), in a temporary directory. Counters zeroed
+    before and read after; launches required exactly (PACKED_TRAIN_STEP,
+    PACKED_VAL_STEP; the per-step counts also against the single-pair
+    [training] phase's). Then one packed step of 8 pairs against 8
+    single-pair steps of the same pairs, in turns, with the step's ms,
+    pairs/s and peak memory. Returns the launch counts of the Trainer run."""
+    from roitr_torch.data.loader import dict_to_pair
+    from roitr_torch.data.packing import pack_pairs
+    from roitr_torch.data.synthetic import SyntheticPairs
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.parallel.train_step import train_step
+    from roitr_torch.train.trainer import Trainer
+
+    overrides = dict(packed_batch=True, batch_size=8, host_pyramid=True, max_epoch=1,
+                     training_max_iter=24, val_max_iter=8, verbose_freq=1)
+    cfg = _train_cfg(**overrides)
+    print(f"[packed training] configs/train/tdmatch.yaml with overrides {overrides}", flush=True)
+    # a train step of the single-pair [training] run (3 train + 1 validation
+    # steps) launches what a packed step does, but FPS (no host pyramid there)
+    single = {k: (single_launches[k] - PACKED_VAL_STEP[k]) / 3 for k in PACKED_TRAIN_STEP
+              if k != "fps"}
+    if single != {k: v for k, v in PACKED_TRAIN_STEP.items() if k != "fps"}:
+        fail(f"a single-pair train step launched {single}, a packed one should launch "
+             f"{PACKED_TRAIN_STEP}")
+    seed = int(rng.randint(1 << 30))
+    t0 = time.time()
+    train_set = _WithPyramids(SyntheticPairs(24, 1024, counts=(600, 1000), seed=seed), cfg)
+    val_set = _WithPyramids(SyntheticPairs(8, 1024, counts=(600, 1000), seed=seed + 100), cfg)
+    print(f"[packed training] 24 + 8 synthetic pairs with normals and host pyramids in "
+          f"{time.time() - t0:.1f} s (host)", flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            trainer = Trainer(cfg, train_set, val_set, device="cuda", time_steps=True)
+            before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.time()
+            best = trainer.train()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            events = [json.loads(line) for line in
+                      open(os.path.join("snapshot", cfg.exp_dir, "events.jsonl"))]
+        finally:
+            os.chdir(cwd)
+    steps = [e for e in events if e["phase"] == "train"]
+    for i, (t, e) in enumerate(zip(trainer.step_times, steps)):
+        total = t["forward_ms"] + t["backward_ms"] + t["optimizer_ms"]
+        print(f"[packed training] step {i} (8 pairs): forward {t['forward_ms']:.1f} ms, backward "
+              f"{t['backward_ms']:.1f} ms, optimizer {t['optimizer_ms']:.1f} ms, "
+              f"{8e3 / total:.2f} pairs/s; running loss {e['loss']:.4f}, grads_finite "
+              f"{e['grads_finite']:.0f}", flush=True)
+    changed = sum(not torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
+    want = {k: 3 * PACKED_TRAIN_STEP[k] + PACKED_VAL_STEP[k] for k in PACKED_TRAIN_STEP}
+    print(f"[packed training] {trainer.step} packed train steps + 1 packed validation step in "
+          f"{wall:.1f} s; max_memory_allocated {peak / 2**30:.3f} GiB; {changed} of "
+          f"{len(before)} tensors changed; val {best}; launches {launches} (expected {want})",
+          flush=True)
+    if trainer.step != 3 or len(steps) != 3:
+        fail(f"expected 3 packed train steps, ran {trainer.step}")
+    if not all(np.isfinite(e["loss"]) and e["grads_finite"] == 1.0 for e in steps):
+        fail("a packed train step's loss or gradients were not finite")
+    if not np.isfinite(best["loss"]) or changed == 0:
+        fail("packed validation loss not finite, or the parameters did not change")
+    if launches != want:
+        fail(f"packed training launches {launches}, expected {want}")
+
+    # one packed step of 8 pairs against 8 single-pair steps of the same
+    # pairs, in turns (packed, single, single, packed), the same model
+    pairs = [dict_to_pair(train_set[i], "cuda") for i in range(8)]
+    packed = pack_pairs(pairs)
+    model, opt = trainer.model, trainer.optimizer
+    gen = torch.Generator().manual_seed(seed)
+    runs = {"packed": [], "single": []}
+    peaks = {}
+    for kind in ("packed", "single", "single", "packed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "packed":
+            runs[kind].append(_step_ms(lambda: train_step(model, opt, packed, gen)))
+        else:
+            runs[kind].append(_step_ms(lambda: [train_step(model, opt, p, gen) for p in pairs]))
+        peaks[kind] = torch.cuda.max_memory_allocated()
+    print(f"[packed training] in turns, 8 pairs of 600-1000 points (1024 bucket): one packed "
+          f"step {', '.join(f'{t:.1f}' for t in runs['packed'])} ms "
+          f"({', '.join(f'{8e3 / t:.2f}' for t in runs['packed'])} pairs/s), peak "
+          f"{peaks['packed'] / 2**30:.3f} GiB; 8 single-pair steps "
+          f"{', '.join(f'{t:.1f}' for t in runs['single'])} ms "
+          f"({', '.join(f'{8e3 / t:.2f}' for t in runs['single'])} pairs/s), peak "
+          f"{peaks['single'] / 2**30:.3f} GiB", flush=True)
+    return launches
+
+
+def _packed_grads(model, pairs, seed):
+    """Packed forward of `pairs`, mean of the per-pair losses, backward:
+    (per-pair losses, {name: gradient on the CPU in float64})."""
+    from roitr_torch.data.packing import pack_pairs
+    from roitr_torch.losses import overall_loss
+
+    model.zero_grad(set_to_none=True)
+    packed = pack_pairs(pairs)
+    out = model(packed, train=True, with_gt=True, generator=torch.Generator().manual_seed(seed))
+    losses = [overall_loss(model.cfg, {k: v[i] for k, v in out.items()}, packed.rot[i],
+                           packed.trans[i]) for i in range(len(pairs))]
+    torch.stack([ls["loss"] for ls in losses]).mean().backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().double()
+             for k, p in model.named_parameters()}
+    return [{k: float(v.detach()) for k, v in ls.items()} for ls in losses], grads
+
+
+def phase_packed_train_parity(rng):
+    """One packed batch of 4 pairs of 600-1000 points (1024 bucket, host
+    pyramids) at full width, fp32 embedding storage: the card's packed
+    gradient against the CPU's (same weights, same Gumbel draws), and
+    against the mean of the 4 single-pair gradients on the card with the GT
+    sampler saturated (num_gt_coarse_corr = max_gt_corr_candidates, as
+    JAX's test_packed_train_step_grads), so that no draw decides a patch."""
+    from roitr_torch.data.loader import dict_to_pair
+    from roitr_torch.data.synthetic import SyntheticPairs
+    from roitr_torch.losses import overall_loss
+    from roitr_torch.models.roitr import RoITr
+
+    cfg = _train_cfg(geo_embedding_storage="fp32", num_gt_coarse_corr=256,
+                     max_gt_corr_candidates=256)
+    seed = int(rng.randint(1 << 30))
+    items = _WithPyramids(SyntheticPairs(4, 1024, counts=(600, 1000), seed=seed), cfg).items
+    t0 = time.time()
+    card_model = RoITr(cfg, device="cuda", seed=1)
+    lg, gg = _packed_grads(card_model, [dict_to_pair(d, "cuda") for d in items], seed)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    lc, gc = _packed_grads(RoITr(cfg, device="cpu", seed=1), [dict_to_pair(d) for d in items],
+                           seed)
+    print(f"[packed train parity] 4 pairs, 1024 bucket, full width, fp32 storage, "
+          f"num_gt_coarse_corr = max_gt_corr_candidates = 256: card step {t_card:.1f} s, CPU "
+          f"step {time.time() - t0:.1f} s", flush=True)
+    _compare_grads("[packed train parity]", "card packed vs CPU packed", lg, gg, lc, gc)
+    card_model.zero_grad(set_to_none=True)
+    gen = torch.Generator().manual_seed(seed + 1)
+    ls = []
+    for d in items:
+        pair = dict_to_pair(d, "cuda")
+        out = card_model(pair, train=True, with_gt=True, generator=gen)
+        losses = overall_loss(cfg, out, pair.rot, pair.trans)
+        (losses["loss"] / len(items)).backward()
+        ls.append({k: float(v.detach()) for k, v in losses.items()})
+    gs = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().double()
+          for k, p in card_model.named_parameters()}
+    _compare_grads("[packed train parity]", "card packed vs mean of 4 card single-pair "
+                   "steps", lg, gg, ls, gs)
+
+
 SOURCES = {
     "fps": ("roitr_torch/csrc/fps.cu", "roitr_tpu/ops/pallas/fps_kernel.py:47"),
     "geo_embedding": ("roitr_torch/csrc/geo_embedding.cu",
@@ -1347,6 +1715,8 @@ def main() -> int:
     phase_tester(rng)
     phase_train_parity(cfg, rng)
     launches, _, _ = phase_training(rng)
+    packed_launches = phase_packed_training(rng, launches)
+    phase_packed_train_parity(rng)
 
     kernels = []
     for name, row in rows.items():
@@ -1355,7 +1725,9 @@ def main() -> int:
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            # the two training runs: [training] and [packed training]
+            "launches": launches[name] + packed_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             # exps and logs on the special-function units are operations
             "bound_by": "bytes" if bound_by == "bytes" else "operations",

@@ -276,6 +276,15 @@ int dispatch(const float* q2, const float* k2, const float* v2, const float* qwp
 //     shape above), each summed in order;
 //  4. rpe_sum_splits adds the ranges' partial sums in order: deterministic,
 //     no atomics.
+//
+// A packed batch of B pairs (the TPU kernel's pair grid axis under vmap) is
+// one launch of each of the four, as for the forward: the products walk
+// B x H (pair-major) slices, each with its pair's and its head's strides;
+// the row kernel's pair is blockIdx.y, and every pointer, the scratch's
+// (B, N, H, N) and (B, N, N, H) slabs and the log-sum-exps included, moves
+// by that pair's stride before the one-pair arithmetic; rpe_sum_splits adds
+// B * N * D elements a product. The split-K ranges are a pair's own, so one
+// launch for B pairs is bit-equal to B one-pair launches.
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -457,6 +466,26 @@ rpe_attention_bwd_rows(const float* __restrict__ qwp, const E* __restrict__ emb,
   float* red = reinterpret_cast<float*>(smem + kStages * sb);  // 2 x warps x kUnroll x NV
 
   const int n = blockIdx.x;
+  {  // this block's pair: every pointer moves by that pair's stride
+    const size_t pair = blockIdx.y;
+    const size_t nd = (size_t)n_total * d_total, nh = (size_t)n_total * heads;
+    const size_t nhn = nh * n_total;
+    qwp += pair * nd * heads;
+    emb += pair * nd * n_total;
+    mask += pair * n_total;
+    ghid += pair * nd;
+    gae += pair * nd * heads;
+    hid += pair * nd;
+    ae += pair * nd * heads;
+    lse_attn += pair * nh;
+    lse_pos += pair * nh;
+    se += pair * nhn;
+    dat += pair * nhn;
+    dqwp += pair * nd * heads;
+    demb += pair * nd * n_total;
+    ds_out += pair * nhn;
+    attn_out += pair * nhn;
+  }
   const int tid = threadIdx.x;
   const int grp = tid / g;
   const int r = tid % g;
@@ -681,19 +710,22 @@ rpe_attention_bwd_rows(const float* __restrict__ qwp, const E* __restrict__ emb,
   }
 }
 
-// One strided fp32 product a launch computes for each of `batch` heads:
-// c[b][i][j] = sum_k a[b][i][k] b[b][k][j], strides in elements.
+// One strided fp32 product a launch computes for each of `batch` (pair,
+// head) slices, pair-major (batch = pairs x heads):
+// c[p][h][i][j] = sum_k a[p][h][i][k] b[p][h][k][j], strides in elements
+// (_b of a head, _p of a pair).
 struct Product {
   const float* a;
   const float* b;
   float* c;
   long long a_b, a_i, a_k, b_b, b_k, b_j, c_b, c_i, c_j;
+  long long a_p, b_p, c_p;
 };
 struct Products {
   Product p[3];
   float* part[3];  // with splits > 1: each product's partial sums, splits x (its c)
   long long part_stride;
-  int m, n, k, batch, splits;
+  int m, n, k, batch, heads, splits;
 };
 
 // A TI x TJ tile of c a block, k in steps of 16 through shared memory, each
@@ -702,84 +734,91 @@ struct Products {
 // summed in order of k: deterministic, no atomics.
 // With splits > 1, a block takes one of `splits` consecutive ranges of k and
 // writes its partial sums; rpe_sum_splits adds them in range order.
+// blockIdx.z walks (product, pair, head, split) with a stride of gridDim.z,
+// so that any count of pairs is one launch; a slice's sums do not depend on
+// how many pairs there are.
 template <int TI, int TJ>
-__global__ void __launch_bounds__(256) rpe_products(Products ps) {
+__global__ void __launch_bounds__(256) rpe_products(Products ps, int total) {
   constexpr int KS = 16, RI = TI / 16, RJ = TJ / 16;
   __shared__ __align__(16) float as[KS][TI + 4];
   __shared__ __align__(16) float bs[KS][TJ + 4];
-  const int split = blockIdx.z % ps.splits;
-  const int pb = blockIdx.z / ps.splits;
-  const Product& P = ps.p[pb / ps.batch];
-  const int bi = pb % ps.batch;
-  const float* a = P.a + bi * P.a_b;
-  const float* b = P.b + bi * P.b_b;
-  float* c = (ps.splits > 1 ? ps.part[pb / ps.batch] + split * ps.part_stride : P.c) + bi * P.c_b;
-  const int kc = (ps.k + ps.splits * KS - 1) / (ps.splits * KS) * KS;  // k a split
-  const int k_begin = split * kc, k_end = min(ps.k, k_begin + kc);
-  const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[RI][RJ];
+  for (int z = blockIdx.z; z < total; z += gridDim.z) {
+    const int split = z % ps.splits;
+    const int pb = z / ps.splits;
+    const Product& P = ps.p[pb / ps.batch];
+    const int bi = pb % ps.batch;
+    const int pair = bi / ps.heads, hd = bi % ps.heads;
+    const float* a = P.a + pair * P.a_p + hd * P.a_b;
+    const float* b = P.b + pair * P.b_p + hd * P.b_b;
+    float* c = (ps.splits > 1 ? ps.part[pb / ps.batch] + split * ps.part_stride : P.c) +
+               pair * P.c_p + hd * P.c_b;
+    const int kc = (ps.k + ps.splits * KS - 1) / (ps.splits * KS) * KS;  // k a split
+    const int k_begin = split * kc, k_end = min(ps.k, k_begin + kc);
+    const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float acc[RI][RJ];
 #pragma unroll
-  for (int u = 0; u < RI; ++u)
+    for (int u = 0; u < RI; ++u)
 #pragma unroll
-    for (int w = 0; w < RJ; ++w) acc[u][w] = 0.f;
-  // the next k-step's tiles are loaded into registers while this one's
-  // products run; the axis of the smaller stride of each operand is the
-  // fastest
-  constexpr int LA = TI * KS / 256, LB = TJ * KS / 256;
-  const bool a_rows = P.a_i < P.a_k, b_cols = P.b_j < P.b_k;
-  float ra[LA], rb[LB];
-  auto fetch = [&](int k0) {
+      for (int w = 0; w < RJ; ++w) acc[u][w] = 0.f;
+    // the next k-step's tiles are loaded into registers while this one's
+    // products run; the axis of the smaller stride of each operand is the
+    // fastest
+    constexpr int LA = TI * KS / 256, LB = TJ * KS / 256;
+    const bool a_rows = P.a_i < P.a_k, b_cols = P.b_j < P.b_k;
+    float ra[LA], rb[LB];
+    auto fetch = [&](int k0) {
 #pragma unroll
-    for (int q = 0; q < LA; ++q) {
-      const int e = threadIdx.x + 256 * q;
-      const int i = a_rows ? e % TI : e / KS, kk = a_rows ? e / TI : e % KS;
-      ra[q] = i0 + i < ps.m && k0 + kk < k_end
-                  ? __ldg(a + (i0 + i) * P.a_i + (k0 + kk) * P.a_k) : 0.f;
+      for (int q = 0; q < LA; ++q) {
+        const int e = threadIdx.x + 256 * q;
+        const int i = a_rows ? e % TI : e / KS, kk = a_rows ? e / TI : e % KS;
+        ra[q] = i0 + i < ps.m && k0 + kk < k_end
+                    ? __ldg(a + (i0 + i) * P.a_i + (k0 + kk) * P.a_k) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < LB; ++q) {
+        const int e = threadIdx.x + 256 * q;
+        const int j = b_cols ? e % TJ : e / KS, kk = b_cols ? e / TJ : e % KS;
+        rb[q] = j0 + j < ps.n && k0 + kk < k_end
+                    ? __ldg(b + (k0 + kk) * P.b_k + (j0 + j) * P.b_j) : 0.f;
+      }
+    };
+    fetch(k_begin);
+    for (int k0 = k_begin; k0 < k_end; k0 += KS) {
+#pragma unroll
+      for (int q = 0; q < LA; ++q) {
+        const int e = threadIdx.x + 256 * q;
+        as[a_rows ? e / TI : e % KS][a_rows ? e % TI : e / KS] = ra[q];
+      }
+#pragma unroll
+      for (int q = 0; q < LB; ++q) {
+        const int e = threadIdx.x + 256 * q;
+        bs[b_cols ? e / TJ : e % KS][b_cols ? e % TJ : e / KS] = rb[q];
+      }
+      __syncthreads();
+      if (k0 + KS < k_end) fetch(k0 + KS);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        float ar[RI], br[RJ];
+#pragma unroll
+        for (int u = 0; u < RI; ++u) ar[u] = as[kk][ty * RI + u];  // one vector load
+#pragma unroll
+        for (int w = 0; w < RJ; ++w) br[w] = bs[kk][tx + 16 * w];
+#pragma unroll
+        for (int u = 0; u < RI; ++u)
+#pragma unroll
+          for (int w = 0; w < RJ; ++w) acc[u][w] = fmaf(ar[u], br[w], acc[u][w]);
+      }
+      __syncthreads();
     }
 #pragma unroll
-    for (int q = 0; q < LB; ++q) {
-      const int e = threadIdx.x + 256 * q;
-      const int j = b_cols ? e % TJ : e / KS, kk = b_cols ? e / TJ : e % KS;
-      rb[q] = j0 + j < ps.n && k0 + kk < k_end
-                  ? __ldg(b + (k0 + kk) * P.b_k + (j0 + j) * P.b_j) : 0.f;
-    }
-  };
-  fetch(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += KS) {
+    for (int u = 0; u < RI; ++u) {
+      const int i = i0 + ty * RI + u;
 #pragma unroll
-    for (int q = 0; q < LA; ++q) {
-      const int e = threadIdx.x + 256 * q;
-      as[a_rows ? e / TI : e % KS][a_rows ? e % TI : e / KS] = ra[q];
-    }
-#pragma unroll
-    for (int q = 0; q < LB; ++q) {
-      const int e = threadIdx.x + 256 * q;
-      bs[b_cols ? e / TJ : e % KS][b_cols ? e % TJ : e / KS] = rb[q];
-    }
-    __syncthreads();
-    if (k0 + KS < k_end) fetch(k0 + KS);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      float ar[RI], br[RJ];
-#pragma unroll
-      for (int u = 0; u < RI; ++u) ar[u] = as[kk][ty * RI + u];  // one vector load
-#pragma unroll
-      for (int w = 0; w < RJ; ++w) br[w] = bs[kk][tx + 16 * w];
-#pragma unroll
-      for (int u = 0; u < RI; ++u)
-#pragma unroll
-        for (int w = 0; w < RJ; ++w) acc[u][w] = fmaf(ar[u], br[w], acc[u][w]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int u = 0; u < RI; ++u) {
-    const int i = i0 + ty * RI + u;
-#pragma unroll
-    for (int w = 0; w < RJ; ++w) {
-      const int j = j0 + tx + 16 * w;
-      if (i < ps.m && j < ps.n) c[i * P.c_i + j * P.c_j] = acc[u][w];
+      for (int w = 0; w < RJ; ++w) {
+        const int j = j0 + tx + 16 * w;
+        if (i < ps.m && j < ps.n) c[i * P.c_i + j * P.c_j] = acc[u][w];
+      }
     }
   }
 }
@@ -801,8 +840,9 @@ rpe_sum_splits(SplitSums ss, int splits, long long elems) {
 
 template <int TI, int TJ>
 cudaError_t launch_products(const Products& ps, int count, cudaStream_t stream) {
-  const dim3 grid((ps.n + TJ - 1) / TJ, (ps.m + TI - 1) / TI, count * ps.batch * ps.splits);
-  rpe_products<TI, TJ><<<grid, 256, 0, stream>>>(ps);
+  const int total = count * ps.batch * ps.splits;
+  const dim3 grid((ps.n + TJ - 1) / TJ, (ps.m + TI - 1) / TI, min(total, 65535));
+  rpe_products<TI, TJ><<<grid, 256, 0, stream>>>(ps, total);
   return cudaGetLastError();
 }
 
@@ -837,24 +877,27 @@ template <typename E, int MAXH>
 int launch_bwd(const float* q2, const float* k2, const float* v2, const float* qwp,
                const void* emb, const float* mask, const float* ghid, const float* gae,
                const float* hid, const float* ae, const float* lse_attn, const float* lse_pos,
-               float* dq, float* dk, float* dv, float* dqwp, void* demb, float* scratch, int n,
-               int d, int heads, cudaStream_t stream) {
+               float* dq, float* dk, float* dv, float* dqwp, void* demb, float* scratch,
+               int batch, int n, int d, int heads, cudaStream_t stream) {
   int g, kt;
   size_t smem;
   if (!bwd_layout<E, MAXH>(d, heads, &g, &kt, &smem)) return (int)cudaErrorInvalidValue;
   const size_t nhn = (size_t)n * heads * n;
+  const size_t all_nhn = nhn * batch;
   float* se = scratch;
-  float* dat = se + nhn;
-  float* ds = dat + nhn;
-  float* attn = ds + nhn;
+  float* dat = se + all_nhn;
+  float* ds = dat + all_nhn;
+  float* attn = ds + all_nhn;
   const long long D = d, c = d / heads, H = heads, HN = H * n;
+  const long long ND = D * n, NHN = (long long)nhn;
 
-  // 1. se = q_h . k_h and dat = ghid_h . v_h, (N, H, N): a warp's stores
+  // 1. se = q_h . k_h and dat = ghid_h . v_h, (B, N, H, N): a warp's stores
   // are contiguous
   Products pre{};
-  pre.p[0] = {q2, k2, se, c, D, 1, c, 1, D, n, HN, 1};
-  pre.p[1] = {ghid, v2, dat, c, D, 1, c, 1, D, n, HN, 1};
-  pre.m = n, pre.n = n, pre.k = (int)c, pre.batch = heads, pre.splits = 1;
+  pre.p[0] = {q2, k2, se, c, D, 1, c, 1, D, n, HN, 1, ND, ND, NHN};
+  pre.p[1] = {ghid, v2, dat, c, D, 1, c, 1, D, n, HN, 1, ND, ND, NHN};
+  pre.m = n, pre.n = n, pre.k = (int)c, pre.batch = batch * heads, pre.heads = heads;
+  pre.splits = 1;
   cudaError_t err = launch_products<64, 64>(pre, 2, stream);
   if (err != cudaSuccess) return (int)err;
 
@@ -865,7 +908,7 @@ int launch_bwd(const float* q2, const float* k2, const float* v2, const float* q
     cudaGetLastError();  // clear it, so the next launch is not blamed
     return (int)err;
   }
-  rpe_attention_bwd_rows<E, MAXH><<<n, kBwdThreads, smem, stream>>>(
+  rpe_attention_bwd_rows<E, MAXH><<<dim3(n, batch), kBwdThreads, smem, stream>>>(
       qwp, static_cast<const E*>(emb), mask, ghid, gae, hid, ae, lse_attn, lse_pos, se, dat,
       dqwp, static_cast<E*>(demb), ds, attn, n, d, heads, g, kt);
   err = cudaGetLastError();
@@ -874,15 +917,16 @@ int launch_bwd(const float* q2, const float* k2, const float* v2, const float* q
   // 3. dq = ds @ k, dk = ds^T @ q, dv = attn^T @ ghid, per head, the rows
   // (k) in kSplitK ranges, then their partial sums added in order
   Products post{};
-  post.p[0] = {ds, k2, dq, 1, HN, H, c, D, 1, c, D, 1};
-  post.p[1] = {ds, q2, dk, 1, H, HN, c, D, 1, c, D, 1};
-  post.p[2] = {attn, ghid, dv, 1, H, HN, c, D, 1, c, D, 1};
-  post.m = n, post.n = (int)c, post.k = n, post.batch = heads, post.splits = kSplitK;
-  const long long nd = (long long)n * d;
+  post.p[0] = {ds, k2, dq, 1, HN, H, c, D, 1, c, D, 1, NHN, ND, ND};
+  post.p[1] = {ds, q2, dk, 1, H, HN, c, D, 1, c, D, 1, NHN, ND, ND};
+  post.p[2] = {attn, ghid, dv, 1, H, HN, c, D, 1, c, D, 1, NHN, ND, ND};
+  post.m = n, post.n = (int)c, post.k = n, post.batch = batch * heads, post.heads = heads;
+  post.splits = kSplitK;
+  const long long nd = ND * batch;  // the B pairs' (N, D) side by side
   post.part_stride = nd;
   SplitSums sums{};
   for (int p = 0; p < 3; ++p) {
-    post.part[p] = attn + nhn + p * kSplitK * nd;
+    post.part[p] = attn + all_nhn + p * kSplitK * nd;
     sums.part[p] = post.part[p];
   }
   sums.out[0] = dq, sums.out[1] = dk, sums.out[2] = dv;
@@ -896,16 +940,17 @@ template <typename E>
 int dispatch_bwd(const float* q2, const float* k2, const float* v2, const float* qwp,
                  const void* emb, const float* mask, const float* ghid, const float* gae,
                  const float* hid, const float* ae, const float* lse_attn, const float* lse_pos,
-                 float* dq, float* dk, float* dv, float* dqwp, void* demb, float* scratch, int n,
-                 int d, int heads, cudaStream_t stream) {
+                 float* dq, float* dk, float* dv, float* dqwp, void* demb, float* scratch,
+                 int batch, int n, int d, int heads, cudaStream_t stream) {
   if (heads <= 4)
     return launch_bwd<E, 4>(q2, k2, v2, qwp, emb, mask, ghid, gae, hid, ae, lse_attn, lse_pos,
-                            dq, dk, dv, dqwp, demb, scratch, n, d, heads, stream);
+                            dq, dk, dv, dqwp, demb, scratch, batch, n, d, heads, stream);
   if (heads <= 8)
     return launch_bwd<E, 8>(q2, k2, v2, qwp, emb, mask, ghid, gae, hid, ae, lse_attn, lse_pos,
-                            dq, dk, dv, dqwp, demb, scratch, n, d, heads, stream);
+                            dq, dk, dv, dqwp, demb, scratch, batch, n, d, heads, stream);
   return launch_bwd<E, kMaxHeads>(q2, k2, v2, qwp, emb, mask, ghid, gae, hid, ae, lse_attn,
-                                  lse_pos, dq, dk, dv, dqwp, demb, scratch, n, d, heads, stream);
+                                  lse_pos, dq, dk, dv, dqwp, demb, scratch, batch, n, d, heads,
+                                  stream);
 }
 
 }  // namespace
@@ -926,17 +971,21 @@ extern "C" long long roitr_rpe_attention_bwd_smem_bytes(int d, int heads, int em
   return ok ? (long long)smem : 0;
 }
 
-// Floats of the scratch that roitr_rpe_attention_bwd takes: se and dat,
-// (N, H, N) each, ds and attn, (N, N, H) each, then the key reduction's
-// partial sums of dq, dk and dv, kSplitK x (N, D) each.
-extern "C" long long roitr_rpe_attention_bwd_scratch_floats(int n, int d, int heads) {
-  return 4LL * n * heads * n + 3LL * kSplitK * n * d;
+// Floats of the scratch that roitr_rpe_attention_bwd takes for `batch`
+// pairs: se and dat, (B, N, H, N) each, ds and attn, (B, N, N, H) each,
+// then the key reduction's partial sums of dq, dk and dv, kSplitK x
+// (B, N, D) each.
+extern "C" long long roitr_rpe_attention_bwd_scratch_floats(int batch, int n, int d,
+                                                           int heads) {
+  return (long long)batch * (4LL * n * heads * n + 3LL * kSplitK * n * d);
 }
 
 // cudaErrorInvalidValue for a shape the backward does not take (rows of
-// 16-byte multiples, at most 16 heads, each of the same width), else 0
-extern "C" int roitr_rpe_attention_bwd_takes(int n, int d, int heads) {
-  if (heads < 1 || heads > kMaxHeads || d % heads || d % 8 || n < 1)
+// 16-byte multiples, at most 16 heads, each of the same width, 1 to 65535
+// pairs: the row kernel's gridDim.y), else 0
+extern "C" int roitr_rpe_attention_bwd_takes(int batch, int n, int d, int heads) {
+  if (heads < 1 || heads > kMaxHeads || d % heads || d % 8 || n < 1 || batch < 1 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
 }
@@ -946,17 +995,17 @@ extern "C" int roitr_rpe_attention_bwd(const float* q2, const float* k2, const f
                                        const float* ghid, const float* gae, const float* hid,
                                        const float* ae, const float* lse_attn,
                                        const float* lse_pos, float* dq, float* dk, float* dv,
-                                       float* dqwp, void* demb, float* scratch, int n, int d,
-                                       int heads, int emb_bf16, void* stream) {
-  if (roitr_rpe_attention_bwd_takes(n, d, heads) || reinterpret_cast<uintptr_t>(emb) % 16 ||
-      reinterpret_cast<uintptr_t>(demb) % 16)
+                                       float* dqwp, void* demb, float* scratch, int batch, int n,
+                                       int d, int heads, int emb_bf16, void* stream) {
+  if (roitr_rpe_attention_bwd_takes(batch, n, d, heads) ||
+      reinterpret_cast<uintptr_t>(emb) % 16 || reinterpret_cast<uintptr_t>(demb) % 16)
     return (int)cudaErrorInvalidValue;
   return emb_bf16
              ? dispatch_bwd<__nv_bfloat16>(q2, k2, v2, qwp, emb, mask, ghid, gae, hid, ae,
-                                           lse_attn, lse_pos, dq, dk, dv, dqwp, demb, scratch, n,
-                                           d, heads, (cudaStream_t)stream)
+                                           lse_attn, lse_pos, dq, dk, dv, dqwp, demb, scratch,
+                                           batch, n, d, heads, (cudaStream_t)stream)
              : dispatch_bwd<float>(q2, k2, v2, qwp, emb, mask, ghid, gae, hid, ae, lse_attn,
-                                   lse_pos, dq, dk, dv, dqwp, demb, scratch, n, d, heads,
+                                   lse_pos, dq, dk, dv, dqwp, demb, scratch, batch, n, d, heads,
                                    (cudaStream_t)stream);
 }
 

@@ -8,10 +8,10 @@ product). The (N, N, D) embedding may be bf16 (storage) while everything
 else is fp32; sums are fp32, and the embedding's gradient comes back in its
 storage dtype. `rpe_attention` is the differentiable entry.
 
-The forward takes a leading pair axis, as the TPU kernel does under the
-packed path's vmap: (B, N, D) q/k/v, (B, N, H, D) qwp, (B, N, N, D)
-embedding, (B, N) key mask, one launch for the B pairs. The backward takes
-one pair: packed training (a pair axis for rows 6 and 7) is the next slice.
+Both take a leading pair axis, as the TPU kernels do under the packed
+path's vmap: (B, N, D) q/k/v, hidden and cotangent, (B, N, H, D) qwp, ae
+and cotangent, (B, N, N, D) embedding, (B, N) key mask, (B, N, H)
+log-sum-exps; one launch of each kernel for the B pairs.
 """
 
 from __future__ import annotations
@@ -89,26 +89,30 @@ def rpe_attention_plain(q2, k2, v2, qwp, embed, key_mask, with_lse: bool = False
 
 def rpe_attention_bwd_plain(q2, k2, v2, qwp, embed, key_mask, ghid, gae):
     """Cotangents ghid (N, D), gae (N, H, D) -> (dq2, dk2, dv2, dqwp, dembed),
-    dembed in embed's dtype: the products of roitr_tpu `_bwd_kernel`."""
+    dembed in embed's dtype: the products of roitr_tpu `_bwd_kernel`. Every
+    argument and result may carry a leading pair axis (B, ...)."""
     from roitr_torch.models.attention import masked_softmax
 
-    n, d = q2.shape
-    h = qwp.shape[1]
+    n, d = q2.shape[-2:]
+    lead = q2.shape[:-2]
+    h = qwp.shape[-2]
     c = d // h
     e = embed.to(q2.dtype)
     scores, keep, keep_pos = _scores(q2, k2, qwp, e, key_mask)
     attn, attn_pos = masked_softmax(scores, keep), masked_softmax(scores, keep_pos)
-    gh = ghid.reshape(n, h, c)
-    dv = torch.einsum("hnm,nhc->mhc", attn, gh).reshape(n, d)
-    d_attn = torch.einsum("nhc,mhc->hnm", gh, v2.reshape(n, h, c))
+    heads = lambda t: t.reshape(*lead, n, h, c)  # noqa: E731
+    gh = heads(ghid)
+    dv = torch.einsum("...hnm,...nhc->...mhc", attn, gh).reshape(*lead, n, d)
+    d_attn = torch.einsum("...nhc,...mhc->...hnm", gh, heads(v2))
     ds = attn * (d_attn - (attn * d_attn).sum(dim=-1, keepdim=True))
-    d_ap = torch.einsum("nhd,nmd->hnm", gae, e)
+    d_ap = torch.einsum("...nhd,...nmd->...hnm", gae, e)
     ds = ds + attn_pos * (d_ap - (attn_pos * d_ap).sum(dim=-1, keepdim=True))
     ds = ds / math.sqrt(c)
-    dq = torch.einsum("hnm,mhc->nhc", ds, k2.reshape(n, h, c)).reshape(n, d)
-    dk = torch.einsum("hnm,nhc->mhc", ds, q2.reshape(n, h, c)).reshape(n, d)
-    dqwp = torch.einsum("hnm,nmd->nhd", ds, e)
-    demb = torch.einsum("hnm,nhd->nmd", attn_pos, gae) + torch.einsum("hnm,nhd->nmd", ds, qwp)
+    dq = torch.einsum("...hnm,...mhc->...nhc", ds, heads(k2)).reshape(*lead, n, d)
+    dk = torch.einsum("...hnm,...nhc->...mhc", ds, heads(q2)).reshape(*lead, n, d)
+    dqwp = torch.einsum("...hnm,...nmd->...nhd", ds, e)
+    demb = (torch.einsum("...hnm,...nhd->...nmd", attn_pos, gae)
+            + torch.einsum("...hnm,...nhd->...nmd", ds, qwp))
     return dq, dk, dv, dqwp, demb.to(embed.dtype)
 
 
@@ -189,38 +193,36 @@ def rpe_attention_bwd(q2, k2, v2, qwp, embed, key_mask, ghid, gae, hidden=None, 
                       lse_attn=None, lse_pos=None):
     """Same function and arguments as rpe_attention_bwd_plain, plus the
     forward's outputs and log-sum-exps (fused_rpe_self_attention with_lse;
-    run here if not given). On the card one launch of the backward kernels:
-    the per-head products q.k and ghid.v, the one-pass row kernel over the
-    embedding, and the products that give dq, dk and dv."""
-    if q2.ndim != 2:
-        raise NotImplementedError(
-            "packed training: the RPE attention backward takes one pair; its pair axis (and "
-            "the geometric embedding backward's) comes with packed training, the next slice")
+    run here if not given). On the card one launch of the backward kernels,
+    for one pair or a leading pair axis of B: the per-head products q.k and
+    ghid.v, the one-pass row kernel over the embedding, and the products
+    that give dq, dk and dv."""
     if route(q2) == "plain":
         return rpe_attention_bwd_plain(q2, k2, v2, qwp, embed, key_mask, ghid, gae)
     from roitr_torch.kernels.build import function
 
-    dev, _, n, d, h = _check(q2, k2, v2, qwp, embed, key_mask)
+    dev, lead, n, d, h = _check(q2, k2, v2, qwp, embed, key_mask)
+    b = lead[0] if lead else 1
     check_launch(function("rpe_attention", "roitr_rpe_attention_bwd_takes",
-                          [ctypes.c_int] * 3)(n, d, h), "rpe_attention_bwd")
+                          [ctypes.c_int] * 4)(b, n, d, h), "rpe_attention_bwd")
     if hidden is None:
         hidden, ae, lse_attn, lse_pos = fused_rpe_self_attention(q2, k2, v2, qwp, embed,
                                                                  key_mask, with_lse=True)
     for t, name, shape in ((ghid, "ghid", (n, d)), (gae, "gae", (n, h, d)),
                            (hidden, "hidden", (n, d)), (ae, "ae", (n, h, d)),
                            (lse_attn, "lse_attn", (n, h)), (lse_pos, "lse_pos", (n, h))):
-        check_cuda(t, name, torch.float32, shape, dev)
+        check_cuda(t, name, torch.float32, lead + shape, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    dq, dk, dv = (torch.empty((n, d), **f32) for _ in range(3))
-    dqwp = torch.empty((n, h, d), **f32)
+    dq, dk, dv = (torch.empty(lead + (n, d), **f32) for _ in range(3))
+    dqwp = torch.empty(lead + (n, h, d), **f32)
     demb = torch.empty_like(embed)
     scratch = torch.empty(function("rpe_attention", "roitr_rpe_attention_bwd_scratch_floats",
-                                   [ctypes.c_int] * 3, ctypes.c_longlong)(n, d, h), **f32)
+                                   [ctypes.c_int] * 4, ctypes.c_longlong)(b, n, d, h), **f32)
     fn = function("rpe_attention", "roitr_rpe_attention_bwd",
-                  [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                  [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     err = fn(ptr(q2), ptr(k2), ptr(v2), ptr(qwp), ptr(embed), ptr(key_mask), ptr(ghid), ptr(gae),
              ptr(hidden), ptr(ae), ptr(lse_attn), ptr(lse_pos), ptr(dq), ptr(dk), ptr(dv),
-             ptr(dqwp), ptr(demb), ptr(scratch), n, d, h, int(embed.dtype == torch.bfloat16),
+             ptr(dqwp), ptr(demb), ptr(scratch), b, n, d, h, int(embed.dtype == torch.bfloat16),
              stream_ptr(dev))
     check_launch(err, "rpe_attention_bwd")
     launch_counts["rpe_attention_bwd"] += 1

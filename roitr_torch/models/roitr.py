@@ -7,7 +7,7 @@ Sinkhorn OT -> fine matching, with fixed-size buffers and masks wherever
 the reference is ragged. Outputs carry the JAX forward's keys. Training
 (`train=True`) takes sampled GT patches and a differentiable OT. A packed
 batch of B pairs (data/packing.py) runs as one forward whose outputs carry
-a leading B (`_forward_packed`); packed training is a later slice.
+a leading B (`_forward_packed`), in training too.
 """
 
 from __future__ import annotations
@@ -151,7 +151,7 @@ class RoITr(nn.Module):
         if with_gt and (pair.rot is None or pair.trans is None):
             raise ValueError("with_gt=True needs pair.rot and pair.trans")
         if pair.src_count.ndim == 1:
-            return self._forward_packed(pair, train=train, with_gt=with_gt)
+            return self._forward_packed(pair, train=train, with_gt=with_gt, generator=generator)
         out = self._backbone_outputs(pair)
         stage = self._pair_stage(out, pair.rot, pair.trans, train, with_gt, generator)
         out.update(stage.outputs)
@@ -287,8 +287,8 @@ class RoITr(nn.Module):
                 "src_corr_points": fine.src_points, "corr_scores": fine.scores,
                 "corr_masks": fine.masks}
 
-    def _forward_packed(self, pair: PairInputs, train: bool = False,
-                        with_gt: bool = False) -> Dict[str, torch.Tensor]:
+    def _forward_packed(self, pair: PairInputs, train: bool = False, with_gt: bool = False,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Packed forward (roitr_tpu/models/roitr.py `_forward_packed`): B
         same-bucket pairs as one flat cloud a side (data/packing.py), with
         their pyramids. The point levels run flat on the pyramids' offset
@@ -297,13 +297,14 @@ class RoITr(nn.Module):
         Partition, GT node correspondences and occlusion, coarse matching
         and the patch gathers (`_pair_stage`) run in a Python loop over B on
         free (B, ...) views; the OT runs over all B * P patches in one
-        Sinkhorn launch and fine matching flat over them. Every output
+        Sinkhorn launch (forward and, in training, backward) and fine
+        matching flat over them (the exact path in training). Every output
         gains a leading B; slice b is the single-pair forward of pair b.
-        Packed training (the Gumbel sampling per pair and the backward
-        kernels' pair axis) is the next slice of the port."""
-        if train:
-            raise NotImplementedError("packed training is the next slice of the port: "
-                                      "one pair a train step")
+        In training each pair samples its own GT patches: JAX splits the
+        sampling rng into B keys, the port draws pair b's Gumbel noise b-th
+        from the one CPU `generator`, in pair order, so pair b's draw is the
+        one a single-pair forward would make after the draws of pairs
+        0..b-1."""
         b = pair.src_count.shape[0]
         flat = self._backbone_outputs(pair)
         counts = ("src_count", "tgt_count", "src_node_count", "tgt_node_count")
@@ -311,7 +312,8 @@ class RoITr(nn.Module):
                  for k, v in flat.items()}
         pick = lambda t, i: None if t is None else t[i]
         stages = [self._pair_stage({k: v[i] for k, v in views.items()}, pick(pair.rot, i),
-                                   pick(pair.trans, i), False, with_gt, None) for i in range(b)]
+                                   pick(pair.trans, i), train, with_gt, generator)
+                  for i in range(b)]
         out = dict(views)
         out.update({k: torch.stack([st.outputs[k] for st in stages]) for k in stages[0].outputs})
         # the OT and fine matching take the B * P patches as one flat batch
@@ -319,7 +321,7 @@ class RoITr(nn.Module):
                          *(torch.cat([getattr(st, f) for st in stages])
                            for f in _Stage._fields[1:]))
         out.update({k: v.reshape(b, -1, *v.shape[1:])
-                    for k, v in self._ot_and_fine(patches, train=False).items()})
+                    for k, v in self._ot_and_fine(patches, train=train).items()})
         return out
 
 

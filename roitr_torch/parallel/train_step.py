@@ -3,14 +3,18 @@
 Counterpart of roitr_tpu/parallel/train_step.py (reference
 lib/trainer.py:169-267, main.py:79-100): forward, the two losses, backward
 through every parameter, and Adam (or SGD) with coupled L2, a per-epoch
-staircase ExpLR and `iter_size` gradient averaging. One pair a step on one
-card: packed batches and data parallelism are later slices of the port.
+staircase ExpLR and `iter_size` gradient averaging, on one card. A step
+takes one pair, a packed batch of B pairs (data/packing.py: one forward,
+outputs with a leading B) or a list of B single pairs (the loader's
+`batch_size > 1` without packing); its loss and metrics are the means of
+the pairs' (JAX's vmap over pairs, then `jnp.mean`). Data parallelism is a
+later slice of the port.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -102,9 +106,33 @@ def make_optimizer(cfg, model: torch.nn.Module, steps_per_epoch: int) -> TrainOp
     return TrainOptimizer(model.parameters(), cfg, steps_per_epoch)
 
 
-def _check_single(pair: PairInputs) -> None:
-    if pair.src_count.ndim != 0:
-        raise NotImplementedError("packed batches are a later slice of the port: one pair a step")
+Batch = Union[PairInputs, List[PairInputs]]
+
+
+def _pair_losses(cfg, out, rot, trans) -> Dict[str, torch.Tensor]:
+    """overall_loss and evaluate of one forward's output, each a 0-d tensor.
+    A packed output (a leading B on every entry) gets both per pair, on the
+    (B, ...) slices, then the mean of each over B (JAX's
+    `jax.vmap(lm)(out, pair.rot, pair.trans)` and `jnp.mean`); the
+    evaluator's metrics carry no gradient."""
+    if rot.ndim == 2:
+        losses = overall_loss(cfg, out, rot, trans)
+        with torch.no_grad():
+            return {**losses, **evaluate(cfg, out, rot, trans)}
+    per_pair = []
+    for i in range(rot.shape[0]):
+        o = {k: v[i] for k, v in out.items()}
+        losses = overall_loss(cfg, o, rot[i], trans[i])
+        with torch.no_grad():
+            per_pair.append({**losses, **evaluate(cfg, o, rot[i], trans[i])})
+    return {k: torch.stack([m[k] for m in per_pair]).mean() for k in per_pair[0]}
+
+
+def batch_pairs(batch: Batch) -> int:
+    """Pairs in a batch: 1, B of a packed pair, or the sum over a list."""
+    if isinstance(batch, list):
+        return sum(batch_pairs(p) for p in batch)
+    return int(batch.src_count.shape[0]) if batch.src_count.ndim == 1 else 1
 
 
 class _Laps:
@@ -120,45 +148,58 @@ class _Laps:
         return time.perf_counter()
 
     def lap(self, name: str) -> None:
+        """Add the ms since the last lap to out[name]."""
         if self.out is not None:
             t = self._now()
-            self.out[name] = (t - self.t) * 1e3
+            self.out[name] = self.out.get(name, 0.0) + (t - self.t) * 1e3
             self.t = t
 
 
-def train_step(model: RoITr, optimizer: TrainOptimizer, pair: PairInputs,
+def train_step(model: RoITr, optimizer: TrainOptimizer, batch: Batch,
                generator: torch.Generator, timings: Optional[dict] = None) -> Dict[str, float]:
-    """One pair through forward, losses, backward and the optimizer; returns
-    loss, c_loss, f_loss, o_loss, PIR, IR and grads_finite (1.0 or 0.0).
-    `generator` (CPU) draws the GT patch sampling's Gumbel noise. Given a
-    dict, `timings` receives the forward, backward and optimizer ms."""
-    _check_single(pair)
+    """One batch through forward, losses, backward and the optimizer; returns
+    the means over its pairs of loss, c_loss, f_loss, o_loss, PIR and IR,
+    and grads_finite (1.0 or 0.0). The gradient is that of the mean loss:
+    a packed pair runs one forward and one backward; a list of B pairs runs
+    the pairs one at a time, each backward of its loss over B adding into
+    the gradients, so that one pair's graph is alive at a time (the peak
+    of one pair, not of B). `generator` (CPU) draws the GT patch sampling's
+    Gumbel noise, pair by pair in batch order. JAX's NaN guard covers the
+    losses and every gradient: one pair's non-finite loss skips the update.
+    Given a dict, `timings` receives the forward, backward and optimizer ms
+    (summed over a list's pairs)."""
     cfg = model.cfg
     laps = _Laps(model.device, timings)
-    out = model(pair, train=True, with_gt=True, generator=generator)
-    losses = overall_loss(cfg, out, pair.rot, pair.trans)
-    with torch.no_grad():
-        metrics = evaluate(cfg, out, pair.rot, pair.trans)
-    laps.lap("forward_ms")
-    losses["loss"].backward()
-    laps.lap("backward_ms")
+    pairs = batch if isinstance(batch, list) else [batch]
+    per_pair = []
+    for pair in pairs:
+        out = model(pair, train=True, with_gt=True, generator=generator)
+        losses = _pair_losses(cfg, out, pair.rot, pair.trans)
+        laps.lap("forward_ms")
+        (losses["loss"] / len(pairs)).backward()
+        laps.lap("backward_ms")
+        per_pair.append({k: v.detach() for k, v in losses.items()})
+    metrics = {k: torch.stack([m[k] for m in per_pair]).mean() for k in per_pair[0]}
     with torch.no_grad():  # one pass over every gradient element, as JAX's guard
-        flat = torch.cat([losses["loss"].reshape(1)] + [
+        flat = torch.cat([torch.stack([m["loss"] for m in per_pair])] + [
             p.grad.reshape(-1) for p in optimizer.params if p.grad is not None])
         grads_finite = bool(torch.isfinite(flat).all())
     optimizer.step(grads_finite)
     laps.lap("optimizer_ms")
-    result = {k: float(v.detach()) for k, v in {**losses, **metrics}.items()}
+    result = {k: float(v) for k, v in metrics.items()}
     result["grads_finite"] = float(grads_finite)
     return result
 
 
 @torch.no_grad()
-def eval_step(model: RoITr, pair: PairInputs) -> Dict[str, float]:
-    """Losses and metrics of one pair on the validation path
-    (train=False, with_gt=True: estimated patches, no sampling)."""
-    _check_single(pair)
-    out = model(pair, train=False, with_gt=True)
-    losses = overall_loss(model.cfg, out, pair.rot, pair.trans)
-    return {k: float(v) for k, v in {**losses, **evaluate(model.cfg, out, pair.rot,
-                                                           pair.trans)}.items()}
+def eval_step(model: RoITr, batch: Batch) -> Dict[str, float]:
+    """Losses and metrics on the validation path (train=False,
+    with_gt=True: estimated patches, no sampling): one pair's, or the means
+    over the pairs of a packed pair or a list."""
+    pairs = batch if isinstance(batch, list) else [batch]
+    per_pair = []
+    for pair in pairs:
+        out = model(pair, train=False, with_gt=True)
+        metrics = _pair_losses(model.cfg, out, pair.rot, pair.trans)
+        per_pair.extend([metrics] * batch_pairs(pair))
+    return {k: float(torch.stack([m[k] for m in per_pair]).mean()) for k in per_pair[0]}

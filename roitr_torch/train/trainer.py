@@ -3,8 +3,10 @@
 Counterpart of roitr_tpu/train/trainer.py (reference lib/trainer.py:9-344):
 train steps over a shuffled epoch, a validation pass, one checkpoint per
 epoch and one per best metric under snapshot/<exp_dir>/checkpoints, and
-resume from cfg.pretrain. One pair a step on one card (or on the CPU when
-asked, with the kernels' plain versions).
+resume from cfg.pretrain. A step takes `cfg.batch_size` same-bucket pairs
+(a list of single pairs, or with `cfg.packed_batch` one packed pair, which
+needs host pyramids) on one card, or on the CPU when asked, with the
+kernels' plain versions.
 
     trainer = Trainer(cfg)                  # device="cuda"; datasets from cfg
     best = trainer.train()
@@ -17,6 +19,7 @@ config is read (data/__init__.py `get_dataset`).
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Dict, List
@@ -27,7 +30,7 @@ from roitr_torch.config import Config
 from roitr_torch.data import get_dataset
 from roitr_torch.data.loader import iterate_batches
 from roitr_torch.models.roitr import RoITr, resolve_device
-from roitr_torch.parallel.train_step import eval_step, make_optimizer, train_step
+from roitr_torch.parallel.train_step import batch_pairs, eval_step, make_optimizer, train_step
 from roitr_torch.train.checkpoint import (
     init_best_metrics,
     load_checkpoint,
@@ -40,13 +43,22 @@ from roitr_torch.utils.logging import Logger, MetricMeters, ScalarWriter, Timer
 class Trainer:
     """With `time_steps`, `step_times` holds the current epoch's per-step
     forward, backward and optimizer ms; that synchronises the card at each
-    border, so it is off by default."""
+    border, so it is off by default.
+
+    The learning rate falls once an epoch: the optimizer is given an
+    epoch's batches, ceil(min(len(train set), training_max_iter) /
+    batch_size). JAX's trainer gives it the epoch's pairs, so that at
+    batch_size B its rate falls once in B epochs; the port keeps the
+    reference's per-epoch ExpLR (ROADMAP Queue 3). training_max_iter and
+    val_max_iter count pairs, as in JAX."""
 
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None, device="cuda",
                  time_steps: bool = False):
-        if cfg.batch_size != 1 or cfg.packed_batch:
-            raise NotImplementedError("one pair a step: batches and packed batches are a later "
-                                      "slice of the port")
+        if int(cfg.dp_size or 1) > 1:
+            raise NotImplementedError("dp_size > 1: data parallelism (DDP) is a later slice of "
+                                      "the port")
+        if cfg.packed_batch and not cfg.host_pyramid:
+            raise ValueError("packed_batch requires host_pyramid (data/packing.py)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_dataset = (get_dataset(cfg, "train") if train_dataset is None
@@ -59,8 +71,9 @@ class Trainer:
         self.writer = ScalarWriter(self.snapshot_dir)
 
         self.model = RoITr(cfg, device=self.device, seed=cfg.seed)
-        steps_per_epoch = min(len(self.train_dataset), cfg.training_max_iter)
-        self.optimizer = make_optimizer(cfg, self.model, steps_per_epoch)
+        pairs_per_epoch = min(len(self.train_dataset), cfg.training_max_iter)
+        self.optimizer = make_optimizer(cfg, self.model,
+                                        math.ceil(pairs_per_epoch / max(cfg.batch_size, 1)))
         self.step = 0
         self.start_epoch = 0
         self.best_metrics = init_best_metrics()
@@ -88,18 +101,19 @@ class Trainer:
         timer = Timer()
         generator = torch.Generator().manual_seed(cfg.seed + epoch)
         self.model.train()
-        pairs = iterate_batches(self.train_dataset, shuffle=True, seed=cfg.seed + epoch,
-                                max_items=cfg.training_max_iter, device=self.device)
+        batches = iterate_batches(self.train_dataset, cfg.batch_size, shuffle=True,
+                                  seed=cfg.seed + epoch, max_items=cfg.training_max_iter,
+                                  pack=self._pack(), device=self.device)
         self.step_times = []
-        for it, pair in enumerate(pairs):
+        for it, batch in enumerate(batches):
             timer.tic()
             timings = {} if self.time_steps else None
-            metrics = train_step(self.model, self.optimizer, pair, generator, timings)
+            metrics = train_step(self.model, self.optimizer, batch, generator, timings)
             self.step += 1
             timer.toc()
             if timings is not None:
                 self.step_times.append(timings)
-            meters.update(metrics)
+            meters.update(metrics, n=batch_pairs(batch))
             if cfg.verbose and (it + 1) % cfg.verbose_freq == 0:
                 self.logger.write(f"epoch {epoch} iter {it + 1}: {meters.summary()}, "
                                   f"{timer.avg:.3f}s/it\n")
@@ -107,12 +121,16 @@ class Trainer:
                 self.writer.write("train", self.step, meters.averages())
         return meters.averages()
 
+    def _pack(self) -> int:
+        return self.cfg.batch_size if self.cfg.packed_batch else 0
+
     def eval_epoch(self, epoch: int) -> Dict[str, float]:
         meters = MetricMeters()
         self.model.eval()
-        for pair in iterate_batches(self.val_dataset, max_items=self.cfg.val_max_iter,
-                                    device=self.device):
-            meters.update(eval_step(self.model, pair))
+        for batch in iterate_batches(self.val_dataset, self.cfg.batch_size,
+                                     max_items=self.cfg.val_max_iter, pack=self._pack(),
+                                     device=self.device):
+            meters.update(eval_step(self.model, batch), n=batch_pairs(batch))
         avgs = meters.averages()
         self.logger.write(f"epoch {epoch} val: {meters.summary()}\n")
         self.writer.write("val", self.step, avgs)

@@ -801,3 +801,136 @@ def test_match_batch_packed_on_card(dev, prep):
         g, w = (set(map(tuple, np.concatenate([r["src_corr_pts"], r["tgt_corr_pts"]], 1)
                         .tolist())) for r in (got[i], ref))
         assert len(g ^ w) <= 0.05 * len(g | w) + flips[i] * per_flip, (i, len(g ^ w), flips)
+
+
+@pytest.mark.parametrize("b,n,d,h,dtype,valid", [
+    (8, 16, 256, 4, torch.bfloat16, (16, 15, 12, 9, 16, 4, 1, 13)),  # coarse level of 1024
+    (8, 16, 256, 4, torch.float32, (16, 15, 12, 9, 16, 4, 1, 13)),
+    (3, 64, 256, 4, torch.bfloat16, (64, 1, 37)),  # a pair with one valid key
+    (3, 64, 64, 8, torch.float32, (64, 0, 23)),    # a pair with no valid key
+    (2, 512, 256, 4, torch.bfloat16, (512, 430)),  # the 32768 bucket's coarse level
+    (2, 512, 256, 4, torch.float32, (512, 430)),
+])
+def test_rpe_attention_bwd_kernel_pair_axis(dev, b, n, d, h, dtype, valid):
+    """One launch of the backward for B pairs, given the forward's saved
+    outputs as training gives them: against the plain backward with the pair
+    axis (fp32 within 1e-4 of the largest value, a bf16 embedding gradient
+    within one bf16 step), and bit-equal to B one-pair launches."""
+    g = torch.Generator().manual_seed(b * n + d)
+    q2, k2, v2, ghid = (torch.randn(b, n, d, generator=g).to(dev) for _ in range(4))
+    qwp = (torch.randn(b, n, h, d, generator=g) * 0.3).to(dev)
+    gae = torch.randn(b, n, h, d, generator=g).to(dev)
+    embed = torch.randn(b, n, n, d, generator=g).to(dev, dtype)
+    mask = (torch.arange(n)[None, :] < torch.tensor(valid)[:, None]).float().to(dev)
+    args = (q2, k2, v2, qwp, embed, mask, ghid, gae)
+    fwd = fused_rpe_self_attention(*args[:6], with_lse=True)
+    got = _launched("rpe_attention_bwd", lambda: rpe_attention_bwd(*args, *fwd))
+    ref = rpe_attention_bwd_plain(*args)
+    for name, a, r in zip(("dq", "dk", "dv", "dqwp", "demb"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        _close(a, r, frac=1 / 128 if a.dtype == torch.bfloat16 else 1e-4)
+    for i in range(b):
+        one = rpe_attention_bwd(*(t[i] for t in args), *(f[i] for f in fwd))
+        assert all(torch.equal(x[i], y) for x, y in zip(got, one)), i
+
+
+def test_rpe_attention_bwd_kernel_batch_of_one_is_the_pair_entry(dev):
+    """(1, N, ...) inputs give bit for bit what the one-pair entry gives."""
+    g = torch.Generator().manual_seed(5)
+    n, d, h = 64, 256, 4
+    q2, k2, v2, ghid = (torch.randn(n, d, generator=g).to(dev) for _ in range(4))
+    qwp = (torch.randn(n, h, d, generator=g) * 0.1).to(dev)
+    gae = torch.randn(n, h, d, generator=g).to(dev)
+    embed = torch.randn(n, n, d, generator=g).to(dev, torch.bfloat16)
+    mask = (torch.arange(n) < 50).float().to(dev)
+    args = (q2, k2, v2, qwp, embed, mask, ghid, gae)
+    one = rpe_attention_bwd(*args)
+    batched = rpe_attention_bwd(*(t[None] for t in args))
+    assert all(torch.equal(x[0], y) for x, y in zip(batched, one))
+
+
+@pytest.mark.parametrize("b,n", [(8, 16), (2, 64)])
+def test_geo_embedding_bwd_kernel_packed_rows(dev, b, n):
+    """Row 7 at a packed batch's B * N^2 flat rows (the coarse level of the
+    1024 bucket, B 8; and B 2 at N 64), bf16 cotangent as training gives it,
+    the plain version's own map: within 1e-4 of the largest value, and two
+    launches bit-equal. Its error against a float64 reduction stays within
+    the 66-chunk case's 2.15e-05 of the largest value (ROADMAP Queue 3
+    "Watch"): the chunk count follows R."""
+    r, k, hidden = b * n * n, 3, 256
+    g = torch.Generator().manual_seed(r)
+    d = (torch.rand(r, generator=g) * 20).to(dev)
+    a = (torch.rand(r, k, generator=g) * 12).to(dev)
+    wd, wa = ((torch.randn(hidden, hidden, generator=g) / 8).to(dev) for _ in range(2))
+    bd, ba = ((torch.randn(hidden, generator=g) / 8).to(dev) for _ in range(2))
+    cot = torch.randn(r, hidden, generator=g).to(dev, torch.bfloat16)
+    _, amap = geo_embedding_plain(d, a, wd, bd, wa, ba, torch.bfloat16, with_argmax=True)
+    got = _launched("geo_embedding_bwd", lambda: geo_embedding_bwd(d, a, amap, cot, hidden))
+    again = geo_embedding_bwd(d, a, amap, cot, hidden)
+    ref = geo_embedding_bwd_plain(d, a, amap, cot, hidden)
+    ref64 = geo_embedding_bwd_plain(d.double(), a.double(), amap, cot.double(), hidden)
+    for x, y, z in zip(got, again, ref):
+        _close(x, z)
+        assert torch.equal(x, y)
+    err64 = max(float((x.double() - w).abs().max()) for x, w in zip(got, ref64))
+    assert err64 <= 2.15e-05 * max(float(w.abs().max()) for w in ref64)
+
+
+def _packed_grad_step(model, pairs):
+    """The packed forward of `pairs`, the mean of its per-pair losses and
+    its backward: (per-pair losses, {name: gradient on the CPU})."""
+    from roitr_torch.data.packing import pack_pairs
+    from roitr_torch.losses import overall_loss
+
+    model.zero_grad(set_to_none=True)
+    packed = pack_pairs(pairs)
+    out = model(packed, train=True, with_gt=True, generator=torch.Generator().manual_seed(0))
+    losses = [overall_loss(model.cfg, {k: v[i] for k, v in out.items()}, packed.rot[i],
+                           packed.trans[i]) for i in range(len(pairs))]
+    torch.stack([ls["loss"] for ls in losses]).mean().backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().double()
+             for k, p in model.named_parameters()}
+    return [{k: float(v.detach()) for k, v in ls.items()} for ls in losses], grads
+
+
+@pytest.mark.parametrize("ppp,iters", [(16, 20), (64, 400)])
+def test_packed_train_step_on_card_matches_cpu(dev, ppp, iters):
+    """A packed train step of 3 pairs (512 bucket, host pyramids) on the
+    card against the CPU's, same weights and Gumbel draws: each RPE
+    attention layer's forward and backward launch once for the 3 pairs, the
+    Sinkhorn kernels once for all patches (none at 400 iterations, past the
+    backward kernel's envelope: the plain loop on the card); per-pair losses
+    within 1e-3 relative, gradients as test_train_step_beyond_the_sinkhorn_kernels
+    holds them."""
+    from torch_parity import pair_arrays, torch_pair
+    from roitr_torch.data.packing import attach_pyramids
+    from roitr_torch.models.roitr import RoITr
+
+    cfg = _tiny_cfg().replace(num_gt_coarse_corr=32, point_per_patch=ppp, sinkhorn_iters=iters,
+                              geo_embedding_storage="fp32")
+    arrs = [pair_arrays(7 + i, 512, n, m) for i, (n, m) in enumerate(((480, 400), (350, 512),
+                                                                      (420, 300)))]
+    pairs = lambda device: [attach_pyramids(torch_pair(a, device), cfg.enc_strides,  # noqa: E731
+                                            cfg.enc_nsample) for a in arrs]
+    card_pairs = pairs(dev)
+    kernels.reset_launch_counts()
+    lg, gg = _packed_grad_step(RoITr(cfg, device=dev, seed=0), card_pairs)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launch_counts)
+    layers = len(cfg.transformer_architecture)
+    want = {"fps": 0, "geo_embedding": 2, "rpe_attention": layers, "rpe_attention_bwd": layers,
+            "geo_embedding_bwd": 2, "sinkhorn": int(iters < 380),
+            "sinkhorn_bwd": int(iters < 380)}
+    assert launched == want, launched
+    lc, gc = _packed_grad_step(RoITr(cfg, device="cpu", seed=0), pairs("cpu"))
+    for i, (a, b) in enumerate(zip(lg, lc)):
+        for k in b:
+            assert abs(a[k] - b[k]) <= 1e-3 * max(abs(b[k]), 1e-6), (i, k, a[k], b[k])
+    norms = {k: float(v.norm()) for k, v in gc.items()}
+    floor = 1e-3 * max(norms.values())
+    for k in gc:
+        assert torch.isfinite(gg[k]).all(), k
+        assert float((gg[k] - gc[k]).norm()) <= 1e-2 * max(norms[k], floor), k
+    fg = torch.cat([v.flatten() for v in gg.values()])
+    fc = torch.cat([v.flatten() for v in gc.values()])
+    assert float(fg @ fc / (fg.norm() * fc.norm())) >= 0.9999

@@ -1,9 +1,11 @@
 """Packed batches of the port on the CPU: B same-bucket pairs as one flat
 cloud a side (roitr_torch/data/packing.py, RoITr `_forward_packed`).
 
-- The batched `rpe_attention_plain` equals B per-pair calls; the RPE
-  attention's backward refuses a pair axis (packed training is the next
-  slice).
+- The batched `rpe_attention_plain` equals B per-pair calls; the batched
+  backward (`rpe_attention_bwd_plain`, which the autograd Function runs on
+  the CPU) equals B per-pair backwards and `jax.vjp` of JAX's
+  `xla_forward` under `jax.vmap` (packed training, which
+  tests/test_torch_packed_train.py holds as a whole).
 - The packed forward (B = 3, mixed counts, host pyramids) equals the port's
   single-pair forwards pair by pair, as tests/test_packed_batch.py holds
   the JAX package's: fp32 outputs within rtol 1e-4 / atol 1e-5, index
@@ -24,20 +26,24 @@ fp32 embedding storage in both packages, every fine correspondence kept
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from roitr_torch.data.packing import attach_pyramids, pack_pairs
-from roitr_torch.kernels.rpe_attention_kernel import rpe_attention, rpe_attention_plain
+from roitr_torch.kernels.rpe_attention_kernel import (
+    rpe_attention,
+    rpe_attention_bwd_plain,
+    rpe_attention_plain,
+)
 from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
 from roitr_torch.serving import Matcher
-from roitr_tpu.data.packing import pack_pairs as jax_pack_pairs
-from roitr_tpu.data.pyramid import build_cloud_pyramid as jax_build_cloud_pyramid
 from roitr_tpu.models.roitr import RoITr as JaxRoITr
+from roitr_tpu.ops.pallas.rpe_attention_kernel import xla_forward
 
 from torch_parity import (  # noqa: F401 (one_torch_thread: an autouse fixture)
-    jax_pair,
+    jax_packed_pair,
     one_torch_thread,
     pair_arrays,
     port_and_params,
@@ -89,16 +95,8 @@ def forwards():
     with torch.no_grad():
         packed = np_out(model(pack_pairs(pairs), with_gt=True))
         singles = [np_out(model(p, with_gt=True)) for p in pairs]
-    jpairs = [jax_pair(a)._replace(
-        src_pyramid=jax_build_cloud_pyramid(a["src_raw_points"], int(a["src_count"])),
-        tgt_pyramid=jax_build_cloud_pyramid(a["tgt_points"], int(a["tgt_count"])))
-        for a in arrays]
-    jpacked = jax_pack_pairs([p._replace(src_count=np.int32(p.src_count),
-                                         tgt_count=np.int32(p.tgt_count)) for p in jpairs])
-    jpacked = jpacked._replace(**{k: jnp.asarray(getattr(jpacked, k)) for k in (
-        "src_points", "src_raw_points", "src_normals", "src_feats", "src_count", "tgt_points",
-        "tgt_normals", "tgt_feats", "tgt_count", "rot", "trans")})
-    want = JaxRoITr(jcfg).apply({"params": params}, jpacked, train=False, with_gt=True)
+    want = JaxRoITr(jcfg).apply({"params": params}, jax_packed_pair(arrays), train=False,
+                                with_gt=True)
     return dict(model=model, pairs=pairs, packed=packed, singles=singles,
                 jax={k: np.asarray(v) for k, v in want.items()})
 
@@ -118,11 +116,36 @@ def test_batched_rpe_attention_plain_equals_per_pair_calls():
 
 
 def test_rpe_attention_backward_refuses_a_pair_axis():
-    args = [torch.randn(2, 8, 16, requires_grad=True) for _ in range(3)]
-    args += [torch.randn(2, 8, 4, 16), torch.randn(2, 8, 8, 16), torch.ones(2, 8)]
-    hidden, ae = rpe_attention(*args)
-    with pytest.raises(NotImplementedError, match="packed training"):
-        (hidden.sum() + ae.sum()).backward()
+    """The RPE attention's backward with a pair axis of 3 (mixed valid keys,
+    one pair with a single key), through the autograd Function as packed
+    training takes it: against 3 per-pair backwards (rtol 1e-6 / atol 1e-6,
+    one fp32 formula batched and not) and against jax.vjp of xla_forward
+    under jax.vmap (rtol 1e-4 / atol 1e-5: sums in other orders)."""
+    rs = np.random.RandomState(3)
+    b, n, d, h = 3, 12, 16, 4
+    arr = dict(q2=rs.randn(b, n, d), k2=rs.randn(b, n, d), v2=rs.randn(b, n, d),
+               qwp=0.3 * rs.randn(b, n, h, d), embed=rs.randn(b, n, n, d),
+               ghid=rs.randn(b, n, d), gae=rs.randn(b, n, h, d))
+    arr = {k: v.astype(np.float32) for k, v in arr.items()}
+    mask = (np.arange(n)[None, :] < np.array([12, 7, 1])[:, None]).astype(np.float32)
+    names = ("q2", "k2", "v2", "qwp", "embed")
+    leaves = [torch.from_numpy(arr[k]).requires_grad_() for k in names]
+    hidden, ae = rpe_attention(*leaves, torch.from_numpy(mask))
+    torch.autograd.backward((hidden, ae), (torch.from_numpy(arr["ghid"]),
+                                           torch.from_numpy(arr["gae"])))
+    got = [t.grad for t in leaves]
+    for i in range(b):
+        want = rpe_attention_bwd_plain(*(torch.from_numpy(arr[k][i]) for k in names),
+                                       torch.from_numpy(mask[i]),
+                                       torch.from_numpy(arr["ghid"][i]),
+                                       torch.from_numpy(arr["gae"][i]))
+        for name, g, w in zip(names, got, want):
+            torch.testing.assert_close(g[i], w, rtol=1e-6, atol=1e-6, msg=f"pair {i} {name}")
+    _, vjp = jax.vjp(jax.vmap(xla_forward), *(jnp.asarray(arr[k]) for k in names),
+                     jnp.asarray(mask))
+    want = vjp((jnp.asarray(arr["ghid"]), jnp.asarray(arr["gae"])))
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
 
 
 def test_packed_forward_equals_single_pair_forwards(forwards):

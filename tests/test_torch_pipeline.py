@@ -25,7 +25,13 @@ from roitr_tpu.models.backbone import RIPointTransformer
 from roitr_tpu.models.roitr import RoITr as JaxRoITr
 from roitr_tpu.serving import Matcher as JaxMatcher
 
-from torch_parity import jax_pair, pair_arrays, port_and_params, torch_pair
+from torch_parity import (  # noqa: F401 (one_torch_thread: an autouse fixture)
+    jax_pair,
+    one_torch_thread,
+    pair_arrays,
+    port_and_params,
+    torch_pair,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 BUCKET = dict(bucket=512, n_valid=480, m_valid=400)

@@ -45,10 +45,11 @@ from roitr_tpu.eval import tester as jax_tester
 from roitr_tpu.models.roitr import RoITr as JaxRoITr
 from roitr_tpu.ops.pyramid import device_prep_pair as jax_device_prep_pair
 
-from torch_parity import (
+from torch_parity import (  # noqa: F401 (one_torch_thread: an autouse fixture)
     TINY,
     jax_pair,
     one_thread,
+    one_torch_thread,
     port_and_params,
     same_correspondences,
     torch_pair,

@@ -43,7 +43,12 @@ from roitr_tpu.ops import neighbors as jneighbors
 from roitr_tpu.ops import partition as jpartition
 from roitr_tpu.parallel.train_step import make_optimizer as jax_make_optimizer
 
-from torch_parity import pair_arrays, port_and_params, torch_pair
+from torch_parity import (  # noqa: F401 (one_torch_thread: an autouse fixture)
+    one_torch_thread,
+    pair_arrays,
+    port_and_params,
+    torch_pair,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 BUCKET = dict(bucket=512, n_valid=480, m_valid=400)
@@ -381,10 +386,26 @@ def test_trainer_one_epoch_and_resume(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_batches(tmp_path, monkeypatch):
+    """Batches of two pairs (a list a step, not packed) train and validate,
+    the step counting optimizer steps and the learning rate falling once an
+    epoch of two batches (JAX's optimizer is given the epoch's pairs, 4, so
+    its rate would not fall until the second epoch's end: ROADMAP Queue 3);
+    data parallelism is still refused."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="one pair a step"):
-        Trainer(Config(**{**TRAINER_CFG, "batch_size": 2}), SyntheticPairs(1, 128),
-                SyntheticPairs(1, 128), device="cpu")
+    cfg = Config(**{**TRAINER_CFG, "batch_size": 2, "training_max_iter": 4,
+                    "scheduler_gamma": 0.5})
+    trainer = Trainer(cfg, SyntheticPairs(5, 128, seed=0, normal_knn=9),
+                      SyntheticPairs(2, 128, seed=50, normal_knn=9), device="cpu")
+    lr = lambda: trainer.optimizer.inner.param_groups[0]["lr"]  # noqa: E731
+    assert lr() == cfg.lr
+    for epoch, want in ((0, 0.5), (1, 0.25)):
+        metrics = trainer.train_epoch(epoch)
+        assert trainer.step == 2 * (epoch + 1) and np.isfinite(metrics["loss"])
+        assert lr() == pytest.approx(cfg.lr * want, rel=1e-12)
+    assert np.isfinite(trainer.eval_epoch(1)["loss"])
+    with pytest.raises(NotImplementedError, match="dp_size"):
+        Trainer(cfg.replace(dp_size=2), SyntheticPairs(1, 128), SyntheticPairs(1, 128),
+                device="cpu")
 
 
 def test_trainer_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):

@@ -28,7 +28,14 @@ from roitr_tpu import losses as jlosses
 from roitr_tpu.config import Config as JaxConfig
 from roitr_tpu.models.roitr import RoITr as JaxRoITr
 
-from torch_parity import TINY, jax_pair, pair_arrays, port_and_params, torch_pair
+from torch_parity import (  # noqa: F401 (one_torch_thread: an autouse fixture)
+    TINY,
+    jax_pair,
+    one_torch_thread,
+    pair_arrays,
+    port_and_params,
+    torch_pair,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 ARCH = dict(transformer_architecture=("self", "cross"), enc_blocks=(2, 1, 1, 2))

@@ -68,6 +68,26 @@ def jax_pair(arr):
         trans=jnp.asarray(arr["trans"]))
 
 
+def jax_packed_pair(arrays):
+    """JAX's packed PairInputs of seeded pair arrays (one bucket), with the
+    JAX package's host pyramids: what its loader's `pack` yields, device
+    leaves as jnp arrays."""
+    import jax.numpy as jnp
+
+    from roitr_tpu.data.packing import pack_pairs
+    from roitr_tpu.data.pyramid import build_cloud_pyramid
+
+    pairs = [jax_pair(a)._replace(
+        src_count=np.int32(a["src_count"]), tgt_count=np.int32(a["tgt_count"]),
+        src_pyramid=build_cloud_pyramid(a["src_raw_points"], int(a["src_count"])),
+        tgt_pyramid=build_cloud_pyramid(a["tgt_points"], int(a["tgt_count"])))
+        for a in arrays]
+    packed = pack_pairs(pairs)
+    return packed._replace(**{k: jnp.asarray(getattr(packed, k)) for k in (
+        "src_points", "src_raw_points", "src_normals", "src_feats", "src_count", "tgt_points",
+        "tgt_normals", "tgt_feats", "tgt_count", "rot", "trans")})
+
+
 def port_and_params(seed: int = 0, **cfg_kw):
     """(port cfg, port model on the CPU, JAX cfg, JAX params with the same
     weights)."""

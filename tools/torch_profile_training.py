@@ -2,6 +2,7 @@
 
     python3 tools/torch_profile_training.py            # on a CUDA card
     python3 tools/torch_profile_training.py --device cpu --bucket 1024 --points 900
+    python3 tools/torch_profile_training.py --bucket 1024 --points 1000 --packed 8
 
 Runs the 3DMatch training configuration (configs/train/tdmatch.yaml) at
 full width with seeded random weights on synthetic pairs (20k-30k points,
@@ -11,6 +12,9 @@ on the host clock after torch.cuda.synchronize(); then one step under
 torch.profiler: device time by kernel name (top 20), the device's busy
 share of the step's wall time, the share of the port's seven CUDA kernels
 and each one's device time and calls, and the peak device memory of a step.
+With --packed B each step is a packed batch of B pairs (data/packing.py,
+host pyramids, as packed training needs); --host-pyramid gives single
+pairs host pyramids too, so that the two modes compare at the same prep.
 
 On the card, each line carries the card's name and power limit. With
 --device cpu it times the CPU run, whose numbers say nothing of the card.
@@ -30,6 +34,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from roitr_torch.config import load_config  # noqa: E402
 from roitr_torch.data.loader import dict_to_pair  # noqa: E402
+from roitr_torch.data.packing import pack_pairs  # noqa: E402
+from roitr_torch.data.pyramid import build_cloud_pyramid  # noqa: E402
 from roitr_torch.data.synthetic import SyntheticPairs  # noqa: E402
 from roitr_torch.models.roitr import RoITr  # noqa: E402
 from roitr_torch.parallel.train_step import make_optimizer, train_step  # noqa: E402
@@ -53,6 +59,8 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--points", type=int, default=30000, help="largest cloud of a pair")
     ap.add_argument("--bucket", type=int, default=32768)
+    ap.add_argument("--packed", type=int, default=0, help="pairs packed into a step")
+    ap.add_argument("--host-pyramid", action="store_true", help="host pyramids for single pairs")
     ap.add_argument("--json", help="also write the numbers to this JSON file")
     args = ap.parse_args()
     device = torch.device(args.device)
@@ -63,8 +71,18 @@ def main() -> int:
     print(card, flush=True)
 
     cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs/train/tdmatch.yaml"))
-    data = SyntheticPairs(5, args.bucket, counts=(args.points * 2 // 3, args.points), seed=0)
-    pairs = [dict_to_pair(data[i], device) for i in range(len(data))]
+    per_step = max(args.packed, 1)
+    data = SyntheticPairs(5 * per_step, args.bucket, counts=(args.points * 2 // 3, args.points),
+                          seed=0)
+    items = [data[i] for i in range(len(data))]
+    if args.packed or args.host_pyramid:
+        kw = dict(strides=tuple(cfg.enc_strides), nsample=tuple(cfg.enc_nsample))
+        for d in items:
+            d["src_pyramid"] = build_cloud_pyramid(d["src_raw_points"], int(d["src_count"]), **kw)
+            d["tgt_pyramid"] = build_cloud_pyramid(d["tgt_points"], int(d["tgt_count"]), **kw)
+    pairs = [dict_to_pair(d, device) for d in items]
+    if args.packed:
+        pairs = [pack_pairs(pairs[i:i + per_step]) for i in range(0, len(pairs), per_step)]
     model = RoITr(cfg, device=device, seed=0)
     opt = make_optimizer(cfg, model, steps_per_epoch=len(pairs))
     gen = torch.Generator().manual_seed(0)
@@ -76,12 +94,13 @@ def main() -> int:
     for i, pair in enumerate(pairs[1:4]):
         t = {}
         m = train_step(model, opt, pair, gen, timings=t)
-        rows.append(dict(points=[int(pair.src_count), int(pair.tgt_count)], **t,
-                         loss=m["loss"]))
-        print(f"[step {i}] {int(pair.src_count)} + {int(pair.tgt_count)} points: forward "
+        points = [int(pair.src_count.sum()), int(pair.tgt_count.sum())]
+        rows.append(dict(points=points, pairs=per_step, **t, loss=m["loss"]))
+        print(f"[step {i}] {per_step} pair(s), {points[0]} + {points[1]} points: forward "
               f"{t['forward_ms']:.1f} ms, backward {t['backward_ms']:.1f} ms, optimizer "
-              f"{t['optimizer_ms']:.1f} ms, total {sum(t.values()):.1f} ms; loss "
-              f"{m['loss']:.4f}; {card}", flush=True)
+              f"{t['optimizer_ms']:.1f} ms, total {sum(t.values()):.1f} ms, "
+              f"{per_step * 1e3 / sum(t.values()):.2f} pairs/s; loss {m['loss']:.4f}; {card}",
+              flush=True)
     peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None
     if peak is not None:
         print(f"[memory] max_memory_allocated over the three steps {peak:.2f} GiB; {card}")

@@ -218,8 +218,8 @@ def main() -> int:
     vp = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
     new_api = {name: hasattr(lib, "roitr_rpe_attention_bwd_takes") for name, lib in libs.items()}
-    # the current source's forward takes a pair count before N; --baseline
-    # sources (and their edits) predate it
+    # the current source's forward and backward take a pair count before N;
+    # --baseline sources (and their edits) predate it
     batch_api = {name: not name.startswith("baseline") for name in libs}
 
     def forward(lib, name, with_lse=True):
@@ -243,7 +243,12 @@ def main() -> int:
 
     def backward(lib, name):
         fn = lib.roitr_rpe_attention_bwd
-        if new_api[name]:
+        if batch_api[name]:
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            err = fn(vp(q2), vp(k2), vp(v2), vp(qwp), vp(embed), vp(mask), vp(ghid), vp(gae),
+                     vp(hid), vp(ae), vp(lse_a), vp(lse_p), vp(dq), vp(dk), vp(dv), vp(dqwp),
+                     vp(demb), vp(scratch), 1, N, D, H, 1, stream())
+        elif new_api[name]:
             fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             err = fn(vp(q2), vp(k2), vp(v2), vp(qwp), vp(embed), vp(mask), vp(ghid), vp(gae),
                      vp(hid), vp(ae), vp(lse_a), vp(lse_p), vp(dq), vp(dk), vp(dv), vp(dqwp),
