@@ -70,6 +70,20 @@ Phases, each of which exits non-zero on failure:
   12. packed train parity  a packed batch of 4 such pairs at full width:
                the card's gradient against the CPU's, and against the mean
                of the 4 single-pair gradients on the card
+  13. 4dmatch  the non-rigid variant at its full width (channel factor 2,
+               hidden 512): every kernel at its shapes against its plain
+               version (rows 2, 3, 6, 7 at width 512, the Sinkhorn forward
+               at the adaptive buffer's 512 patches), each row's ms, bound
+               and error on a line of its own; card against CPU at the 4096
+               bucket on a flow pair (the with-GT forward's node
+               descriptors and adaptive correspondences, one train step's
+               losses and gradients); then, on flow pairs of 20k-30k points
+               written as the reference's .npz entries in a temporary
+               directory, the Trainer (configs/train/fdmatch.yaml: 8 pairs,
+               2 updates at iter_size 4, 1 validation step; launches
+               exact, widths 512), the Tester (configs/test/fdmatch.yaml,
+               host and device prep, full and c2f dumps) with the port's
+               NFMR / IR evaluation, and one Matcher.match request
 It then prints one JSON line with each kernel's numbers, the card's name
 and power limit, and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -228,8 +242,14 @@ def phase_build():
           f"{smem(256, 4, 1)} bytes at D 256, H 4, bf16; {smem(512, 4, 1)} at D 512", flush=True)
 
 
-def phase_kernels(rng):
-    """Each kernel against its plain version at the 32768 bucket's shapes."""
+def phase_kernels(rng, hidden: int = 256, serving_patches: int = 256, tag: str = "[kernels]",
+                  extras: bool = True):
+    """Each kernel against its plain version at the 32768 bucket's shapes:
+    the global transformer's width `hidden` (256 at 3DMatch, 512 at 4DMatch)
+    for the embedding and the RPE attention, `serving_patches` Sinkhorn
+    patches in serving (the 3DMatch top-k's 256, 4DMatch's adaptive buffer
+    of 512). `extras`: the pair-axis and packed-shape checks too. Returns
+    each row's numbers."""
     from roitr_torch.data.synthetic import make_pair_arrays
     from roitr_torch.kernels.fps_kernel import fps_pairs, fps_plain
     from roitr_torch.kernels.geo_embedding_kernel import (
@@ -276,7 +296,7 @@ def phase_kernels(rng):
         torch.cuda.synchronize()
         mism = int((idx != plain).sum())
         idx_err = max(idx_err, int((idx - plain).abs().max()))
-        print(f"[kernels] fps ({pts.shape[0]}, {pts.shape[1]}) -> {m}: {mism} index mismatches",
+        print(f"{tag} fps ({pts.shape[0]}, {pts.shape[1]}) -> {m}: {mism} index mismatches",
               flush=True)
         if mism:
             fail(f"fps kernel differs from its plain version in {mism} indices")
@@ -288,13 +308,13 @@ def phase_kernels(rng):
     byt = sum(p.numel() * 4 + p.shape[0] * m * 4 for p, _, m in levels)
     rows["fps"] = dict(max_abs_err=float(idx_err), ms=ms, plain_ms=plain_ms, bytes=byt, flops=ops)
 
-    # ---- geometric embedding of one cloud's 512 nodes: R = 262144, H = 256
+    # ---- geometric embedding of one cloud's 512 nodes: R = 262144, H = hidden
     nodes, ncount = pts[0], int(cnt[0])
-    emb = GeometricStructureEmbedding(256).to(dev)
+    emb = GeometricStructureEmbedding(hidden).to(dev)
     with torch.no_grad():
         for lin in (emb.proj_d, emb.proj_a):
-            lin.weight.copy_((torch.rand(256, 256, generator=gen) * 2 - 1) / 16)
-            lin.bias.copy_((torch.rand(256, generator=gen) * 2 - 1) / 16)
+            lin.weight.copy_((torch.rand(hidden, hidden, generator=gen) * 2 - 1) / hidden ** 0.5)
+            lin.bias.copy_((torch.rand(hidden, generator=gen) * 2 - 1) / hidden ** 0.5)
         d_idx, a_idx = emb.indices(nodes, torch.tensor(ncount, device=dev))
         d_idx = d_idx.reshape(-1).contiguous()
         a_idx = a_idx.reshape(d_idx.shape[0], -1).contiguous()
@@ -306,12 +326,12 @@ def phase_kernels(rng):
         err32 = float((got32 - ref32).abs().max())
         err = float((got.float() - ref.float()).abs().max())
         top = float(ref32.abs().max())
-        print(f"[kernels] geo_embedding R={d_idx.shape[0]} H=256 k={a_idx.shape[1]}: "
+        print(f"{tag} geo_embedding R={d_idx.shape[0]} H={hidden} k={a_idx.shape[1]}: "
               f"fp32 max abs err {err32:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g}); "
               f"bf16 max abs err {err:.3g} (tol one bf16 ulp at max|ref| = {top / 128:.3g})",
               flush=True)
         emu = geo_embedding_split_plain(d_idx, a_idx, *w, out_dtype=torch.float32)
-        print(f"[kernels] geo_embedding fp32: kernel vs its split-bf16 emulation max abs err "
+        print(f"{tag} geo_embedding fp32: kernel vs its split-bf16 emulation max abs err "
               f"{float((got32 - emu).abs().max()):.3g}, emulation vs plain "
               f"{float((emu - ref32).abs().max()):.3g}", flush=True)
         del emu
@@ -322,11 +342,11 @@ def phase_kernels(rng):
                                                        out_dtype=torch.bfloat16), 3)
     r, k = a_idx.shape
     # the kernel takes each product as three bf16 products on the tensor cores
-    byt = r * 4 + r * k * 4 + 4 * (2 * 256 * 256 + 2 * 256) + r * 256 * 2
-    flops = 2.0 * r * (1 + k) * 256 * 256
+    byt = r * 4 + r * k * 4 + 4 * (2 * hidden * hidden + 2 * hidden) + r * hidden * 2
+    flops = 2.0 * r * (1 + k) * hidden * hidden
     fp32_ms, _ = bound(byt, flops)
     tc_ms, tc_by = bound(byt, 3 * flops, BF16_TC_FLOP_PER_S)
-    print(f"[kernels] geo_embedding bound: {flops:.3g} FLOP, {fp32_ms:.3f} ms on the fp32 CUDA "
+    print(f"{tag} geo_embedding bound: {flops:.3g} FLOP, {fp32_ms:.3f} ms on the fp32 CUDA "
           f"cores; three bf16 products {3 * flops:.3g} FLOP, {tc_ms:.3f} ms on the tensor cores "
           f"({tc_by}); bytes {byt / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel {ms:.3f} ms",
           flush=True)
@@ -341,16 +361,16 @@ def phase_kernels(rng):
         _, plain_map = geo_embedding_plain(d_idx, a_idx, *w, out_dtype=torch.bfloat16,
                                            with_argmax=True)
         map_mism = int((amap != plain_map).sum())
-        g = torch.randn(r, 256, generator=gen).to(dev, torch.bfloat16)
-        dgot = geo_embedding_bwd(d_idx, a_idx, amap, g, 256)
-        dref = geo_embedding_bwd_plain(d_idx, a_idx, amap, g, 256)
+        g = torch.randn(r, hidden, generator=gen).to(dev, torch.bfloat16)
+        dgot = geo_embedding_bwd(d_idx, a_idx, amap, g, hidden)
+        dref = geo_embedding_bwd_plain(d_idx, a_idx, amap, g, hidden)
         err = max(float((a - b).abs().max()) for a, b in zip(dgot, dref))
         top = max(float(b.abs().max()) for b in dref)
-        demu = geo_embedding_bwd_split_plain(d_idx, a_idx, amap, g, 256)
+        demu = geo_embedding_bwd_split_plain(d_idx, a_idx, amap, g, hidden)
         err_emu = max(float((a - b).abs().max()) for a, b in zip(dgot, demu))
         emu_err = max(float((a - b).abs().max()) for a, b in zip(demu, dref))
         del demu
-    print(f"[kernels] geo_embedding_bwd R={r} H=256 k={k} bf16 cotangent: max abs err "
+    print(f"{tag} geo_embedding_bwd R={r} H={hidden} k={k} bf16 cotangent: max abs err "
           f"{err:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g}); kernel vs its split-bf16 "
           f"emulation {err_emu:.3g}, emulation vs plain {emu_err:.3g}; argmax map: {map_mism} "
           f"of {amap.numel()} entries differ from the plain argmax (near-ties within rounding)",
@@ -360,26 +380,26 @@ def phase_kernels(rng):
     if map_mism > 1e-3 * amap.numel():
         fail(f"geo_embedding argmax map differs from the plain argmax in {map_mism} entries "
              f"(tol 1e-3 of {amap.numel()})")
-    ms = cuda_ms(lambda: geo_embedding_bwd(d_idx, a_idx, amap, g, 256), 5)
-    plain_ms = cuda_ms(lambda: geo_embedding_bwd_plain(d_idx, a_idx, amap, g, 256), 2)
+    ms = cuda_ms(lambda: geo_embedding_bwd(d_idx, a_idx, amap, g, hidden), 5)
+    plain_ms = cuda_ms(lambda: geo_embedding_bwd_plain(d_idx, a_idx, amap, g, hidden), 2)
     # each cotangent entry meets one basis row of each projection (the
     # distance's, and the angle's of its winning k): dWd and dWa; the kernel
     # takes each product as two bf16 products (basis hi and lo) on the tensor
     # cores, and multiplies the masked g of every one of the 1 + k phases
-    byt = r * 4 + r * k * 4 + r * 256 * (1 + 2) + 4 * (2 * 256 * 256 + 256)
-    flops = 2.0 * r * 2 * 256 * 256
+    byt = r * 4 + r * k * 4 + r * hidden * (1 + 2) + 4 * (2 * hidden * hidden + hidden)
+    flops = 2.0 * r * 2 * hidden * hidden
     fp32_ms, _ = bound(byt, flops)
     tc_ms, tc_by = bound(byt, 2 * flops, BF16_TC_FLOP_PER_S)
     masked_ms, _ = bound(byt, 2 * flops * (1 + k) / 2, BF16_TC_FLOP_PER_S)
-    print(f"[kernels] geo_embedding_bwd bound: {flops:.3g} FLOP, {fp32_ms:.3f} ms on the fp32 "
+    print(f"{tag} geo_embedding_bwd bound: {flops:.3g} FLOP, {fp32_ms:.3f} ms on the fp32 "
           f"CUDA cores; two bf16 products {2 * flops:.3g} FLOP, {tc_ms:.3f} ms on the tensor "
           f"cores ({tc_by}); the masked products of all {1 + k} phases {masked_ms:.3f} ms; bytes "
           f"{byt / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel {ms:.3f} ms", flush=True)
     rows["geo_embedding_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=byt,
                                      flops=2 * flops, peak=BF16_TC_FLOP_PER_S)
 
-    # ---- RPE self-attention: N = 512, D = 256, H = 4, bf16 embedding
-    n, d, h = 512, 256, 4
+    # ---- RPE self-attention: N = 512, D = hidden, H = 4, bf16 embedding
+    n, d, h = 512, hidden, 4
     embed = got.reshape(n, n, d)
     q2, k2, v2 = (torch.randn(n, d, generator=gen).to(dev) for _ in range(3))
     qwp = (torch.randn(n, h, d, generator=gen) * 0.1).to(dev)
@@ -388,7 +408,7 @@ def phase_kernels(rng):
     hid_ref, ae_ref = rpe_attention_plain(q2, k2, v2, qwp, embed, mask)
     err = max(float((hid - hid_ref).abs().max()), float((ae - ae_ref).abs().max()))
     top = max(float(hid_ref.abs().max()), float(ae_ref.abs().max()))
-    print(f"[kernels] rpe_attention N={n} D={d} H={h} bf16 embedding, {ncount} valid keys: "
+    print(f"{tag} rpe_attention N={n} D={d} H={h} bf16 embedding, {ncount} valid keys: "
           f"max abs err {err:.3g} (tol 1e-4 * max|ref| = {1e-4 * top:.3g})", flush=True)
     if not err <= 1e-4 * top:
         fail("rpe_attention kernel outside tolerance")
@@ -398,7 +418,7 @@ def phase_kernels(rng):
     lse_err = max(float((a - b).abs().max()) for a, b in zip(fwd[2:], fwd_ref[2:]))
     lse_top = max(float(b.abs().max()) for b in fwd_ref[2:])
     same = all(torch.equal(a, b) for a, b in zip(fwd[:2], (hid, ae)))
-    print(f"[kernels] rpe_attention log-sum-exps: max abs err {lse_err:.3g} (tol 1e-4 * "
+    print(f"{tag} rpe_attention log-sum-exps: max abs err {lse_err:.3g} (tol 1e-4 * "
           f"max|ref| = {1e-4 * lse_top:.3g}); hidden and ae bit-equal without them: {same}",
           flush=True)
     if not (lse_err <= 1e-4 * lse_top and same):
@@ -406,7 +426,7 @@ def phase_kernels(rng):
     ms = cuda_ms(lambda: fused_rpe_self_attention(q2, k2, v2, qwp, embed, mask), 10)
     lse_ms = cuda_ms(lambda: fused_rpe_self_attention(q2, k2, v2, qwp, embed, mask,
                                                       with_lse=True), 10)
-    print(f"[kernels] rpe_attention: {ms:.3f} ms without the log-sum-exps (serving), "
+    print(f"{tag} rpe_attention: {ms:.3f} ms without the log-sum-exps (serving), "
           f"{lse_ms:.3f} ms with them (training)", flush=True)
     plain_ms = cuda_ms(lambda: rpe_attention_plain(q2, k2, v2, qwp, embed, mask), 3)
     rows["rpe_attention"] = dict(
@@ -415,11 +435,12 @@ def phase_kernels(rng):
         flops=2.0 * n * n * (2 * h * d + 2 * d))
     same_one = all(torch.equal(a[0], b) for a, b in zip(
         fused_rpe_self_attention(*(t[None] for t in (q2, k2, v2, qwp, embed, mask))), (hid, ae)))
-    print(f"[kernels] rpe_attention (1, N, D) inputs bit-equal to the one-pair entry: "
+    print(f"{tag} rpe_attention (1, N, D) inputs bit-equal to the one-pair entry: "
           f"{same_one}", flush=True)
     if not same_one:
         fail("rpe_attention with a pair axis of 1 differs from the one-pair entry")
-    rpe_attention_pair_axis(gen)
+    if extras:
+        rpe_attention_pair_axis(gen)
 
     # ---- RPE attention backward, same inputs, random cotangents
     ghid = torch.randn(n, d, generator=gen).to(dev)
@@ -429,7 +450,7 @@ def phase_kernels(rng):
     ref = rpe_attention_bwd_plain(*args)
     emu = rpe_attention_bwd_onepass_plain(*args, *fwd)
     torch.cuda.synchronize()
-    print(f"[kernels] rpe_attention_bwd kernel vs its one-pass emulation, max abs err "
+    print(f"{tag} rpe_attention_bwd kernel vs its one-pass emulation, max abs err "
           f"{max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, emu)):.3g}; "
           f"emulation vs plain "
           f"{max(float((a.float() - b.float()).abs().max()) for a, b in zip(emu, ref)):.3g}",
@@ -439,7 +460,7 @@ def phase_kernels(rng):
     for name, a, b in zip(("dq", "dk", "dv", "dqwp", "demb"), got, ref):
         e, top = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
         tol = top / 128 if name == "demb" else 1e-4 * top
-        print(f"[kernels] rpe_attention_bwd {name}: max abs err {e:.3g} (tol {tol:.3g}"
+        print(f"{tag} rpe_attention_bwd {name}: max abs err {e:.3g} (tol {tol:.3g}"
               f"{', one bf16 step at max|ref|' if name == 'demb' else ', 1e-4 * max|ref|'})",
               flush=True)
         if not e <= tol:
@@ -450,11 +471,13 @@ def phase_kernels(rng):
     rows["rpe_attention_bwd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bytes=rpe_bwd_bytes(1, n, d, h, 2), flops=rpe_bwd_flops(1, n, d, h))
-    rpe_attention_bwd_pair_axis(gen)
-    packed_shapes(gen)
+    if extras:
+        rpe_attention_bwd_pair_axis(gen)
+        packed_shapes(gen)
 
-    # ---- Sinkhorn: (256, 65, 65) x 100, the serving shape (the line kernel)
-    p, kk, iters = 256, 64, 100
+    # ---- Sinkhorn at the serving shape, (serving_patches, 65, 65) x 100
+    # (the line kernel)
+    p, kk, iters = serving_patches, 64, 100
     scores = torch.randn(p, kk, kk, generator=gen).to(dev)
     rmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
     cmask = (torch.rand(p, kk, generator=gen) > 0.1).to(dev)
@@ -464,13 +487,13 @@ def phase_kernels(rng):
     ref = sinkhorn_plain(padded, log_mu, log_nu, iters)
     valid = ref > -1e5
     err = float((out - ref)[valid].abs().max())
-    print(f"[kernels] sinkhorn ({p}, {kk + 1}, {kk + 1}) x {iters}: max abs err {err:.3g} on "
+    print(f"{tag} sinkhorn ({p}, {kk + 1}, {kk + 1}) x {iters}: max abs err {err:.3g} on "
           f"valid entries (tol 1e-4)", flush=True)
     if not err <= 1e-4:
         fail("sinkhorn kernel outside tolerance")
     ref64 = sinkhorn_plain(padded.double(), log_mu.double(), log_nu.double(), iters)
     emu = sinkhorn_base2_plain(padded, log_mu, log_nu, iters)
-    print(f"[kernels] sinkhorn against a float64 loop, max abs err on valid entries: kernel "
+    print(f"{tag} sinkhorn against a float64 loop, max abs err on valid entries: kernel "
           f"{float((out.double() - ref64)[valid].abs().max()):.3g}, fp32 plain loop "
           f"{float((ref.double() - ref64)[valid].abs().max()):.3g}, its base-2 emulation "
           f"{float((emu.double() - ref64)[valid].abs().max()):.3g}", flush=True)
@@ -482,7 +505,7 @@ def phase_kernels(rng):
     ops, sfu = 2 * 4.0 * p * m1 * m1 * iters, 2.0 * p * m1 * iters * (m1 + 1)
     byt = 4 * (2 * p * m1 * m1 + 2 * p * m1)
     b_ms, b_by = bound(byt, ops, sfu=sfu)
-    print(f"[kernels] sinkhorn bound: {sfu:.4g} exps and logs, {b_ms:.4f} ms ({b_by}); fp32 "
+    print(f"{tag} sinkhorn bound: {sfu:.4g} exps and logs, {b_ms:.4f} ms ({b_by}); fp32 "
           f"{ops / FP32_FLOP_PER_S * 1e3:.4f} ms, bytes {byt / HBM_BYTES_PER_S * 1e3:.4f} ms; "
           f"kernel {ms:.4f} ms", flush=True)
     rows["sinkhorn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=byt, flops=ops,
@@ -508,7 +531,7 @@ def phase_kernels(rng):
                    float((traj_v - ref_traj[2]).abs().amax(dim=1)[cols_ok].max()))
     fwd_ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, iters), 20)
     traj_ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, iters, with_traj=True), 20)
-    print(f"[kernels] sinkhorn ({p}, {m1}, {m1}) x {iters}: trajectory max abs err {traj_err:.3g} "
+    print(f"{tag} sinkhorn ({p}, {m1}, {m1}) x {iters}: trajectory max abs err {traj_err:.3g} "
           f"on valid rows and columns (tol 1e-4); output bit-equal without it: {same}; "
           f"{fwd_ms:.4f} ms without the trajectory (validation), {traj_ms:.4f} ms with it "
           f"(training)", flush=True)
@@ -524,13 +547,13 @@ def phase_kernels(rng):
     # fp32 plain loop itself is about 1e-4 off the float64 loop printed below
     for name, a, b, frac in zip(("ds", "dmu", "dnu"), got, ref, (1e-4, 1e-3, 1e-3)):
         e, top = float((a - b).abs().max()), float(b.abs().max())
-        print(f"[kernels] sinkhorn_bwd ({p}, {m1}, {m1}) x {iters} {name}: max abs err {e:.3g} "
+        print(f"{tag} sinkhorn_bwd ({p}, {m1}, {m1}) x {iters} {name}: max abs err {e:.3g} "
               f"(tol {frac:g} * max|ref| = {frac * top:.3g})", flush=True)
         if not e <= frac * top:
             fail(f"sinkhorn_bwd kernel outside tolerance in {name}")
         err = max(err, e)
     same = all(torch.equal(a, b) for a, b in zip(got, made))
-    print(f"[kernels] sinkhorn_bwd making its own trajectory: bit-equal to the one from the "
+    print(f"{tag} sinkhorn_bwd making its own trajectory: bit-equal to the one from the "
           f"forward's: {same}; kernel vs its split-sum emulation (same trajectory), max abs "
           f"err {max(float((a - b).abs().max()) for a, b in zip(got, emu)):.3g}", flush=True)
     if not same:
@@ -539,7 +562,7 @@ def phase_kernels(rng):
                                iters)
     for name, a, b, c in zip(("ds", "dmu", "dnu"), got, ref, ref64):
         top = float(c.abs().max())
-        print(f"[kernels] sinkhorn_bwd {name} against a float64 loop, max abs err / max|ref|: "
+        print(f"{tag} sinkhorn_bwd {name} against a float64 loop, max abs err / max|ref|: "
               f"kernel {float((a.double() - c).abs().max()) / top:.3g}, fp32 plain loop "
               f"{float((b.double() - c).abs().max()) / top:.3g}", flush=True)
     ms = cuda_ms(lambda: sinkhorn_bwd(padded, log_mu, log_nu, g, iters, traj=traj), 20)
@@ -555,7 +578,7 @@ def phase_kernels(rng):
     b_ms, b_by = bound(byt + traj_bytes, ops, sfu=sfu)
     tpu_ms, tpu_by = bound(byt, ops + 2 * 4.0 * p * m1 * m1 * iters,
                            sfu=2 * sfu + 2.0 * p * m1 * iters * (m1 + 1))
-    print(f"[kernels] sinkhorn_bwd bound from the trajectory: {sfu:.4g} exps, "
+    print(f"{tag} sinkhorn_bwd bound from the trajectory: {sfu:.4g} exps, "
           f"{traj_bytes / 1e6:.2f} MB of trajectory read, {b_ms:.4f} ms ({b_by}); as the TPU "
           f"kernel does it (recompute, then reverse) {tpu_ms:.4f} ms ({tpu_by}); kernel "
           f"{ms:.4f} ms from the trajectory, {made_ms:.4f} ms making its own", flush=True)
@@ -756,8 +779,10 @@ def _pair(arr, n, m, device):
     bucket = arr["src_points"].shape[0]
     view = np.zeros(3, np.float32)
     nrm = {}
-    for side, c in (("src", n), ("tgt", m)):
-        pts = arr[f"{side}_points"]
+    # normals of the raw source, as the datasets estimate them (a rigid
+    # pair's raw source is its source)
+    for side, c, key in (("src", n, "src_raw_points"), ("tgt", m, "tgt_points")):
+        pts = arr[key]
         full = np.zeros_like(pts)
         full[:c] = normal_redirect_np(pts[:c], estimate_normals_np(pts[:c], 33), view)
         nrm[side] = full
@@ -1683,6 +1708,297 @@ def phase_packed_train_parity(rng):
                    "steps", lg, gg, ls, gs)
 
 
+# launches of one full-width train step (device FPS, no host pyramids) and
+# of one validation step
+TRAIN_STEP = {"fps": 3, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1,
+              "sinkhorn_bwd": 1, "rpe_attention_bwd": 6, "geo_embedding_bwd": 2}
+VAL_STEP = {"fps": 3, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1,
+            "sinkhorn_bwd": 0, "rpe_attention_bwd": 0, "geo_embedding_bwd": 0}
+
+
+def _fd_cfg(kind: str, **overrides):
+    """configs/<kind>/fdmatch.yaml through load_config with the port's one
+    override, knn_method "exact" (the test config's "approx" is a TPU
+    operator)."""
+    from roitr_torch.config import load_config
+
+    return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                    kind, "fdmatch.yaml"), knn_method="exact", **overrides)
+
+
+def _write_flow_entries(rng, base, sizes):
+    """Synthetic flow pairs of the given (source, target) counts as the
+    reference's .npz entries under <base>/split/4DMatch/scene0, each with a
+    metric_index of every 10th source point; returns the split path
+    relative to base."""
+    from roitr_torch.data.synthetic import make_flow_pair_arrays
+
+    scene = os.path.join(base, "split", "4DMatch", "scene0")
+    os.makedirs(scene)
+    for i, (n, m) in enumerate(sizes):
+        arr = make_flow_pair_arrays(rng, 32768, n, m)
+        np.savez(os.path.join(scene, f"pair{i:02d}.npz"), s_pc=arr["src_raw_points"][:n],
+                 t_pc=arr["tgt_points"][:m], s2t_flow=arr["flow"][:n], rot=arr["rot"],
+                 trans=arr["trans"], metric_index=np.arange(0, n, 10)[None])
+    return os.path.join("split", "4DMatch")
+
+
+class _Widths:
+    """Records the width of each launch of the geometric embedding and the
+    RPE attention that the model layers make (their wrappers, wrapped)."""
+
+    def __init__(self):
+        import roitr_torch.models.attention as attention
+        import roitr_torch.models.embeddings as embeddings
+
+        self.seen = {"geo_embedding": set(), "rpe_attention": set()}
+        self.mods = ((embeddings, "geo_embedding", lambda a: a[2].shape[1]),
+                     (attention, "rpe_attention", lambda a: a[0].shape[-1]))
+        self.saved = []
+
+    def __enter__(self):
+        for mod, name, width in self.mods:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, _width=width, **kw):
+                self.seen[_name].add(int(_width(a)))
+                return _fn(*a, **kw)
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_fdmatch(rng):
+    """The 4DMatch (non-rigid) variant at its full width, channel factor 2:
+    the kernels at its shapes against their plain versions; card against
+    CPU at the 4096 bucket (the with-GT forward, one train step); then on
+    flow pairs of 20k-30k points written as the reference's .npz entries,
+    the Trainer (configs/train/fdmatch.yaml: 8 pairs, two updates at
+    iter_size 4, one validation step), the Tester (configs/test/fdmatch.yaml,
+    4DLoMatch, host pyramids; host and device prep, full and c2f dumps)
+    with the port's NFMR / IR evaluation, and one Matcher.match request.
+    Returns the Trainer's launches."""
+    from roitr_torch.data.synthetic import make_flow_pair_arrays
+    from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.serving import Matcher
+
+    t_phase = time.time()
+    # ---- 1. every kernel at the 4DMatch shapes: rows 2, 3, 6, 7 at width
+    # 512, row 4 at the adaptive buffer's 512 patches
+    rows = phase_kernels(rng, hidden=512, serving_patches=512, tag="[4dmatch] kernels",
+                         extras=False)
+    for name, row in rows.items():
+        b_ms, b_by = bound(row["bytes"], row["flops"], row.get("peak", FP32_FLOP_PER_S),
+                           row.get("sfu", 0.0))
+        print(f"[4dmatch] kernel {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({'bytes' if b_by == 'bytes' else 'operations'}), max abs "
+              f"err {row['max_abs_err']:.3g}", flush=True)
+    print(f"[4dmatch] kernels in {time.time() - t_phase:.1f} s", flush=True)
+
+    # ---- 2. card against CPU at the 4096 bucket, factor 2, one flow pair
+    t0 = time.time()
+    cfg = _fd_cfg("train")
+    arr = make_flow_pair_arrays(rng, 4096, 3900, 3600)
+    gpu, cpu = RoITr(cfg, device="cuda", seed=0), RoITr(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        og = {k: v.cpu() for k, v in gpu(_pair(arr, 3900, 3600, "cuda"), with_gt=True).items()}
+        oc = cpu(_pair(arr, 3900, 3600, "cpu"), with_gt=True)
+    snc, tnc = int(oc["src_node_count"]), int(oc["tgt_node_count"])
+    node_cos = min(float(_cos(og["src_node_feats"][:snc], oc["src_node_feats"][:snc]).min()),
+                   float(_cos(og["tgt_node_feats"][:tnc], oc["tgt_node_feats"][:tnc]).min()))
+    corr = lambda o: {(int(t), int(s)) for t, s, v in zip(  # noqa: E731
+        o["tgt_node_corr_indices"], o["src_node_corr_indices"], o["node_corr_masks"]) if v}
+    cg, cc = corr(og), corr(oc)
+    apart = len(cg ^ cc) / max(len(cg | cc), 1)
+    print(f"[4dmatch] bucket 4096 with-GT forward, card + CPU in {time.time() - t0:.1f} s: node "
+          f"descriptors min cos {node_cos:.6f} (tol >= 0.999); adaptive node correspondences "
+          f"card {len(cg)}, CPU {len(cc)} of a {og['node_corr_masks'].shape[0]}-slot buffer, "
+          f"{len(cg ^ cc)} apart = {apart:.2%} of their union (tol 5%: near-ties at the "
+          f"{cfg.coarse_similarity_threshold} threshold); GT node correspondences "
+          f"{int(oc['gt_node_corr_masks'].sum())}", flush=True)
+    for k, v in og.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            fail(f"[4dmatch] forward output {k} is not finite")
+    if not (node_cos >= 0.999 and apart <= 0.05 and len(cc) > 0):
+        fail("[4dmatch] card forward disagrees with the CPU forward")
+    t0 = time.time()
+    pcfg = cfg.replace(geo_embedding_storage="fp32")
+    lg, gg = _grad_step(RoITr(pcfg, device="cuda", seed=0), _pair(arr, 3900, 3600, "cuda"))
+    lc, gc = _grad_step(RoITr(pcfg, device="cpu", seed=0), _pair(arr, 3900, 3600, "cpu"))
+    print(f"[4dmatch] bucket 4096 train step, card + CPU in {time.time() - t0:.1f} s; losses "
+          f"card {lg} CPU {lc}", flush=True)
+    _compare_grads("[4dmatch]", "train step, card vs CPU", [lg], gg, [lc], gc)
+
+    # ---- 3. full width on flow pairs of 20k-30k points
+    sizes = [(int(rng.randint(20000, 30001)), int(rng.randint(20000, 30001))) for _ in range(9)]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            split = _write_flow_entries(rng, tmp, sizes)
+            print(f"[4dmatch] 9 flow pairs as .npz entries in {time.time() - t0:.1f} s (host); "
+                  f"counts {sizes}", flush=True)
+            launches = _fdmatch_training(tmp, split, _Widths)
+            _fdmatch_tester(tmp, split, rng)
+            # serving: one request at 4DMatch (the training config's model:
+            # a 512-slot adaptive buffer), host normals
+            matcher = Matcher(cfg, gpu.state_dict())
+            n, m = sizes[0]
+            entry = np.load(os.path.join(split, "scene0", "pair00.npz"))
+            src, tgt = entry["s_pc"] + entry["s2t_flow"], entry["t_pc"]
+            matcher.match(src, tgt)  # first call: allocator and caches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.time()
+            res = matcher.match(src, tgt)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+            got = {k: launch_counts[k] for k in FORWARD_KERNELS}
+            print(f"[4dmatch] Matcher.match (4DMatch, {n} + {m} points, host normals): "
+                  f"{wall:.1f} ms wall; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}; "
+                  f"{res['confidence'].shape[0]} correspondences", flush=True)
+            if got != FORWARD_LAUNCHES:
+                fail(f"[4dmatch] Matcher.match launches {got}, expected {FORWARD_LAUNCHES}")
+        finally:
+            os.chdir(cwd)
+    print(f"[4dmatch] phase in {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def _fdmatch_training(tmp, split, widths):
+    """Trainer from configs/train/fdmatch.yaml on the first 8 entries (two
+    updates at iter_size 4) and one validation step on the ninth: launches
+    required exactly, the geometric embedding and RPE attention launched at
+    width 512."""
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.train.trainer import Trainer
+
+    entries = sorted(os.listdir(os.path.join(split, "scene0")))
+    with open("train.txt", "w") as f:
+        f.write("\n".join(os.path.join(split, "scene0", e) for e in entries[:8]) + "\n")
+    with open("val.txt", "w") as f:
+        f.write(os.path.join(split, "scene0", entries[8]) + "\n")
+    cfg = _fd_cfg("train", root=tmp, train_info="train.txt", val_info="val.txt", max_epoch=1,
+                  training_max_iter=8, val_max_iter=1, verbose_freq=1)
+    trainer = Trainer(cfg, device="cuda", time_steps=True)
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    with widths() as seen:
+        metrics = trainer.train_epoch(0)
+        val = trainer.eval_epoch(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    for i, t in enumerate(trainer.step_times):
+        print(f"[4dmatch] train mini-step {i}: forward {t['forward_ms']:.1f} ms, backward "
+              f"{t['backward_ms']:.1f} ms, optimizer {t['optimizer_ms']:.1f} ms", flush=True)
+    changed = sum(not torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
+    updates = trainer.optimizer.scheduler.last_epoch
+    print(f"[4dmatch] Trainer ({cfg.benchmark}, factor {cfg.channel_factor}, iter_size "
+          f"{cfg.iter_size}): {trainer.step} mini-steps, {updates} optimizer updates, 1 "
+          f"validation step in {wall:.1f} s; max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"train {metrics}; val {val}; {changed} of {len(before)} tensors changed; launches "
+          f"{launches}; widths launched {dict((k, sorted(v)) for k, v in seen.seen.items())}",
+          flush=True)
+    if trainer.step != 8 or updates != 2 or changed == 0:
+        fail("[4dmatch] expected 8 mini-steps and 2 updates that change the parameters")
+    if not (np.isfinite(metrics["loss"]) and metrics["grads_finite"] == 1.0
+            and np.isfinite(val["loss"])):
+        fail("[4dmatch] a train or validation loss or gradient was not finite")
+    want = {k: 8 * TRAIN_STEP[k] + VAL_STEP[k] for k in TRAIN_STEP}
+    if launches != want:
+        fail(f"[4dmatch] Trainer launches {launches}, expected {want} (a kernel of the path "
+             "missing, or a layer sent to the plain version)")
+    if seen.seen != {"geo_embedding": {512}, "rpe_attention": {512}}:
+        fail(f"[4dmatch] kernel widths {seen.seen}, expected 512 only")
+    return launches
+
+
+def _fdmatch_tester(tmp, split, rng):
+    """The Tester from configs/test/fdmatch.yaml (4DLoMatch, host pyramids)
+    on the first two entries, host prep and device prep, full and c2f dumps,
+    every fine correspondence kept (confidence threshold 0: random weights
+    keep none at 0.05, and the evaluators and the c2f cap get rows);
+    launches required exactly; c2f dumps are the full dumps' first
+    dump_corr_cap rows; the port's evaluate_fdmatch reads each run's
+    dumps."""
+    from roitr_torch.eval import evaluate_fdmatch, get_trainer, list_dumps, load_dump
+    from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from roitr_torch.models.roitr import RoITr
+
+    entries = sorted(os.listdir(os.path.join(split, "scene0")))[:2]
+    with open("test.txt", "w") as f:
+        f.write("\n".join(os.path.join(split, "scene0", e) for e in entries) + "\n")
+    cfg = _fd_cfg("test", root=tmp, test_info="test.txt", pretrain=os.path.join(tmp, "w.pth"),
+                  fine_matching_confidence_threshold=0.0)
+    torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
+    print(f"[4dmatch] Tester: configs/test/fdmatch.yaml ({cfg.benchmark}, host_pyramid "
+          f"{cfg.host_pyramid}) with root, test_info, pretrain, knn_method='exact' and "
+          f"fine_matching_confidence_threshold=0.0; dump_corr_cap {cfg.dump_corr_cap}",
+          flush=True)
+    dumps = {}
+    for name, kw in (("host_full", {}), ("host_c2f", dict(dump_mode="c2f")),
+                     ("device_full", dict(device_prep=True)),
+                     ("device_c2f", dict(device_prep=True, dump_mode="c2f"))):
+        run_cfg = cfg.replace(exp_dir=name, **kw)
+        tester = get_trainer(run_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        tester.test()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: launch_counts[k] for k in launch_counts}
+        dumps[name] = [load_dump(p) for p in list_dumps(tester.snapshot_dir)]
+        res = evaluate_fdmatch(tester.snapshot_dir)
+        print(f"[4dmatch] Tester {name}: {wall / len(entries):.3f} s/pair; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; "
+              f"correspondences {[int(d['confidence'].shape[0]) for d in dumps[name]]}; "
+              f"NFMR {res['NFMR']:.4f}, IR {res['IR']:.4f} (random weights: not metrics)",
+              flush=True)
+        want = {k: v * len(entries) for k, v in FORWARD_LAUNCHES.items()}
+        if not run_cfg.device_prep:
+            want["fps"] = 0  # host pyramids
+        if {k: launches[k] for k in FORWARD_KERNELS} != want or any(
+                launches[k] for k in launches if k not in FORWARD_KERNELS):
+            fail(f"[4dmatch] Tester ({name}) launches {launches}, expected {want}")
+        for d in dumps[name]:
+            if "metric_index_list" not in d or d["src_pcd"].shape != d["src_raw_pcd"].shape:
+                fail(f"[4dmatch] Tester ({name}): a dump lacks metric_index_list or the raw "
+                     "source")
+            if not np.abs(d["src_pcd"] - d["src_raw_pcd"]).max() > 1e-3:
+                fail(f"[4dmatch] Tester ({name}): src_pcd is not the deformed source")
+        if not all(np.isfinite(v) for v in res.values()):
+            fail(f"[4dmatch] evaluate_fdmatch of {name}: {res}")
+    for prep in ("host", "device"):
+        for full, c2f in zip(dumps[f"{prep}_full"], dumps[f"{prep}_c2f"]):
+            rows = min(len(full["confidence"]), cfg.dump_corr_cap)
+            if len(c2f["confidence"]) != rows:
+                fail(f"[4dmatch] Tester {prep}: {len(c2f['confidence'])} c2f rows, expected "
+                     f"{rows}")
+            for k in ("src_corr_pts", "tgt_corr_pts", "confidence"):
+                if not np.array_equal(full[k][:rows], c2f[k]):
+                    fail(f"[4dmatch] Tester {prep}: c2f dump's {k} is not the full dump's first "
+                         f"{rows} rows")
+            for k in ("src_pcd", "src_raw_pcd", "metric_index_list"):
+                if not np.array_equal(full[k], c2f[k]):
+                    fail(f"[4dmatch] Tester {prep}: c2f dump's {k} differs from the full dump's")
+
+
 SOURCES = {
     "fps": ("roitr_torch/csrc/fps.cu", "roitr_tpu/ops/pallas/fps_kernel.py:47"),
     "geo_embedding": ("roitr_torch/csrc/geo_embedding.cu",
@@ -1717,6 +2033,7 @@ def main() -> int:
     launches, _, _ = phase_training(rng)
     packed_launches = phase_packed_training(rng, launches)
     phase_packed_train_parity(rng)
+    fd_launches = phase_fdmatch(rng)
 
     kernels = []
     for name, row in rows.items():
@@ -1725,8 +2042,9 @@ def main() -> int:
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # the two training runs: [training] and [packed training]
-            "launches": launches[name] + packed_launches[name],
+            # the three training runs: [training], [packed training] and
+            # the 4DMatch Trainer of [4dmatch]
+            "launches": launches[name] + packed_launches[name] + fd_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             # exps and logs on the special-function units are operations

@@ -66,8 +66,9 @@ class Config:
     # static shape buckets (multiples of 64 so every pyramid level is exact)
     buckets: Sequence[int] = (4096, 8192, 16384, 24576, 32768)
     normal_knn: int = 33
-    # precompute the FPS/kNN pyramid on the host; the port computes FPS and
-    # kNN on the device and raises on True (host pyramids are not ported yet)
+    # precompute the FPS/kNN pyramids on the host (data/pyramid.py, the
+    # native library), so the forward runs no search; False: the backbone
+    # runs FPS and kNN on the device
     host_pyramid: bool = False
     # per-pair geometry prep on the device: the datasets ship zero normals
     # and the Tester estimates them on the device (ops/pyramid.py

@@ -17,8 +17,10 @@ def resolve_info_path(relpath: str) -> str:
 
 def get_dataset(config, mode: str):
     """Dataset of a split, "train" | "val" | "test" (reference
-    dataset/dataloader.py:8-30). Train pairs are augmented; val and test
-    pairs are seeded by index."""
+    dataset/dataloader.py:8-30): 3DMatch (`tdmatch`) or 4DMatch
+    (`fdmatch`, whose test split is `test_info`, or `val_info` when that
+    is empty). Train pairs are augmented; val and test pairs are seeded by
+    index."""
     if config.dataset == "tdmatch":
         from roitr_torch.data.tdmatch import TDMatchDataset, load_info
 
@@ -37,5 +39,12 @@ def get_dataset(config, mode: str):
                                   data_augmentation=False)
         raise ValueError(f"unknown split {mode!r}")
     if config.dataset == "fdmatch":
-        raise NotImplementedError("the 4DMatch dataset (fdmatch) is a later slice of the port")
+        from roitr_torch.data.fdmatch import FDMatchDataset, read_entries
+
+        splits = {"train": config.train_info, "val": config.val_info,
+                  "test": config.test_info or config.val_info}
+        if mode not in splits:
+            raise ValueError(f"unknown split {mode!r}")
+        return FDMatchDataset(read_entries(splits[mode], config.root), config,
+                              data_augmentation=(mode == "train"))
     raise ValueError(f"unknown dataset {config.dataset!r}")

@@ -1,9 +1,10 @@
 """Synthetic partially-overlapping pairs (host-side numpy).
 
 Counterpart of roitr_tpu/data/synthetic.py: surface-like local structure
-(so PCA normals are meaningful), a random SO(3) ground-truth transform, and
-prefix-packed padding to a bucket. `SyntheticPairs` serves such pairs as a
-dataset of preprocessed items, normals included.
+(so PCA normals are meaningful), a random SO(3) ground-truth transform,
+prefix-packed padding to a bucket, and non-rigid pairs under a smooth
+flow. `SyntheticPairs` serves rigid pairs as a dataset of preprocessed
+items, normals included.
 """
 
 from __future__ import annotations
@@ -61,6 +62,27 @@ def make_pair_arrays(rng: np.random.RandomState, bucket: int, n_valid: int, m_va
         "rot": rot,
         "trans": trans,
     }
+
+
+def make_flow_pair_arrays(rng: np.random.RandomState, bucket: int, n_valid: int, m_valid: int,
+                          overlap: float = 0.7, flow_scale: float = 0.08):
+    """A non-rigid (4DMatch-style) pair: make_pair_arrays' source, which
+    the GT transform carries onto the target, is the deformed source; the
+    raw source is it bent back by a smooth sine flow, so raw + flow ==
+    deformed (reference dataset/fdmatch.py:31-98: s_pc + s2t_flow is the
+    matching geometry, s_pc carries the normals and the backbone). Returns
+    make_pair_arrays' dict, src_raw_points the raw source, plus 'flow'
+    (bucket, 3), zero past the source's count."""
+    arr = make_pair_arrays(rng, bucket, n_valid, m_valid, overlap)
+    deformed = arr["src_points"]
+    freqs = rng.randn(3, 3).astype(np.float32) * 1.5
+    phases = rng.rand(3).astype(np.float32) * 2 * np.pi
+    flow = flow_scale * np.stack(
+        [np.sin(deformed @ freqs[i] + phases[i]) for i in range(3)], axis=1).astype(np.float32)
+    flow[arr["src_count"]:] = 0.0
+    arr["src_raw_points"] = (deformed - flow).astype(np.float32)
+    arr["flow"] = flow
+    return arr
 
 
 class SyntheticPairs:

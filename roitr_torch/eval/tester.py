@@ -19,12 +19,13 @@ pair, as the single-pair loop dumps them. Sharding over several cards
 
 from __future__ import annotations
 
+import glob
 import os
 import queue
 import threading
 import time
 import warnings
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -167,6 +168,21 @@ def trim_outputs(out: Dict[str, np.ndarray], pair, metric_index=None) -> Dict[st
 def dump_pair(path_base: str, data: Dict[str, np.ndarray]) -> None:
     torch.save({k: torch.from_numpy(np.array(v, copy=True)) for k, v in data.items()},
                path_base + ".pth")
+
+
+def load_dump(path: str) -> Dict[str, np.ndarray]:
+    """One dump (`.pth` as dump_pair writes it, or `.npz`) as numpy arrays."""
+    if path.endswith(".npz"):
+        return dict(np.load(path))
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    return {k: (v.numpy() if hasattr(v, "numpy") else np.asarray(v)) for k, v in data.items()}
+
+
+def list_dumps(desc_dir: str) -> List[str]:
+    """The `<i>.pth` / `<i>.npz` dumps of a directory, by pair index."""
+    files = glob.glob(os.path.join(desc_dir, "*.pth")) + glob.glob(
+        os.path.join(desc_dir, "*.npz"))
+    return sorted(files, key=lambda p: int(os.path.splitext(os.path.basename(p))[0]))
 
 
 class Tester:

@@ -1,7 +1,7 @@
 """Coarse and fine matching heads with fixed-capacity outputs.
 
 Counterpart of roitr_tpu/models/matching.py (reference
-model/modules.py:135-324): every head emits fixed-size index and score
+model/modules.py:75-324): every head emits fixed-size index and score
 buffers plus validity masks. Top-k ties go to the lower index
 (ops/topk.py), as with the JAX package's lax.top_k.
 """
@@ -40,6 +40,31 @@ def coarse_matching(ref_feats, src_feats, ref_masks, src_masks, num_corresponden
     k = min(num_correspondences, scores.numel())
     corr_scores, flat_idx = topk(scores.reshape(-1), k)
     return CoarseCorr(flat_idx // n, flat_idx % n, corr_scores, corr_scores > 0.0)
+
+
+def adaptive_superpoint_matching(src_feats, tgt_feats, src_masks, tgt_masks,
+                                 min_num_correspondences: int, capacity: int,
+                                 similarity_threshold: float = 0.75) -> CoarseCorr:
+    """Threshold-adaptive superpoint matching of the non-rigid benchmarks
+    (reference modules.py:75-124): every pair whose normalized feature
+    distance is at most the threshold, and at least the
+    `min_num_correspondences` smallest. The `capacity` smallest distances
+    form the fixed buffer (masked pairs +inf, ties to the lower index, +inf
+    slots included); a slot is valid when finite and under the threshold or
+    ranked below the minimum count. Returns (src, tgt) in the reference's
+    argument order: ref_indices = src, src_indices = tgt (the caller
+    re-orients)."""
+    dist = torch.sqrt(pairwise_sq_dist(src_feats, tgt_feats, normalized=True))
+    pair_mask = src_masks[:, None] & tgt_masks[None, :]
+    dist = torch.where(pair_mask, dist, torch.full_like(dist, math.inf))
+    n = dist.shape[1]
+    cap = min(capacity, dist.numel())
+    corr_dist, flat_idx = topk(dist.reshape(-1), cap, largest=False)
+    rank = torch.arange(cap, device=dist.device)
+    valid = torch.isfinite(corr_dist) & ((corr_dist <= similarity_threshold)
+                                         | (rank < min(min_num_correspondences, cap)))
+    scores = torch.where(valid, torch.exp(-corr_dist), torch.zeros_like(corr_dist))
+    return CoarseCorr(flat_idx // n, flat_idx % n, scores, valid)
 
 
 def gumbel_noise(shape, generator: torch.Generator, device=None) -> torch.Tensor:

@@ -22,6 +22,8 @@ from torch import nn
 from roitr_torch.config import Config
 from roitr_torch.models.backbone import RIPointTransformer
 from roitr_torch.models.matching import (
+    CoarseCorr,
+    adaptive_superpoint_matching,
     coarse_matching,
     fine_matching,
     gt_coarse_corr_generator,
@@ -38,10 +40,11 @@ from roitr_torch.ops.sinkhorn import log_sinkhorn_ot
 class PairInputs(NamedTuple):
     """One padded point-cloud pair (prefix-packed), torch tensors.
 
-    For rigid benchmarks src_points == src_raw_points; the backbone runs on
-    the raw geometry (reference RIGA_v2.py:58-62). A packed batch
-    (data/packing.py) has (B * N, ...) point leaves, (B,) counts and a
-    leading B on rot and trans."""
+    For rigid benchmarks src_points == src_raw_points; for 4DMatch
+    src_points is the deformed source (the matching geometry) and
+    src_raw_points the raw one, on which the backbone runs (reference
+    RIGA_v2.py:58-62). A packed batch (data/packing.py) has (B * N, ...)
+    point leaves, (B,) counts and a leading B on rot and trans."""
 
     src_points: torch.Tensor  # (N, 3)
     src_raw_points: torch.Tensor  # (N, 3)
@@ -113,8 +116,6 @@ class RoITr(nn.Module):
             raise NotImplementedError(
                 f"sinkhorn_backend {cfg.sinkhorn_backend!r}: the port runs the Sinkhorn kernel "
                 "on the card and its plain loop on the CPU")
-        if not cfg.is_rigid:
-            raise NotImplementedError("non-rigid (4DMatch) matching is a later slice of the port")
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype!r}: the port computes in float32 (bf16 "
@@ -228,10 +229,21 @@ class RoITr(nn.Module):
         res["gt_tgt_node_occ"] = gt_tgt_occ
         res["gt_src_node_occ"] = gt_src_occ
 
-        # coarse matching, no gradient (reference RIGA_v2.py:119-126, no_grad)
-        est = coarse_matching(out["tgt_node_feats"].detach(), out["src_node_feats"].detach(),
-                              tgt_part.node_masks, src_part.node_masks, cfg.num_est_coarse_corr,
-                              dual_normalization=True)
+        # coarse matching, no gradient (reference RIGA_v2.py:119-126, no_grad):
+        # the top-k of rigid benchmarks, the adaptive threshold of non-rigid
+        # ones, whose buffer holds `capacity` correspondences
+        tgt_f, src_f = out["tgt_node_feats"].detach(), out["src_node_feats"].detach()
+        if cfg.is_rigid:
+            est = coarse_matching(tgt_f, src_f, tgt_part.node_masks, src_part.node_masks,
+                                  cfg.num_est_coarse_corr, dual_normalization=True)
+        else:
+            m = adaptive_superpoint_matching(
+                src_f, tgt_f, src_part.node_masks, tgt_part.node_masks,
+                min_num_correspondences=cfg.num_est_coarse_corr,
+                capacity=cfg.coarse_corr_capacity or max(4 * cfg.num_est_coarse_corr, 512),
+                similarity_threshold=cfg.coarse_similarity_threshold)
+            # it returns (src, tgt); the pipeline reads (tgt = ref, src)
+            est = CoarseCorr(m.src_indices, m.ref_indices, m.scores, m.masks)
         res["tgt_node_corr_indices"] = est.ref_indices
         res["src_node_corr_indices"] = est.src_indices
         res["node_corr_masks"] = est.masks

@@ -1,1 +1,2 @@
-"""Training step and optimizer of the port (batch 1, one card)."""
+"""Training step and optimizer of the port (one pair, a list of pairs or a packed
+batch a step, one card)."""

@@ -28,8 +28,11 @@ class TrainOptimizer:
     - Adam(betas (0.9, 0.99), eps 1e-8) or SGD(momentum), with the L2 term
       `weight_decay * p` added to the gradient before the moments (torch's
       coupled weight_decay, optax.add_decayed_weights first in the chain).
-    - lr = cfg.lr * gamma ** (k // T) for the k-th update, T =
-      steps_per_epoch // iter_size (optax.exponential_decay, staircase).
+    - With `steps_per_epoch`, lr = cfg.lr * gamma ** (k // T) for the k-th
+      update, T = steps_per_epoch // iter_size (optax.exponential_decay,
+      staircase). Without it, lr = cfg.lr * gamma ** e once `set_epoch(e)`
+      says e epochs are done (the reference's ExpLR, stepped once an
+      epoch).
     - With iter_size > 1, the gradients of iter_size mini-steps are averaged
       and one update is made (optax.MultiSteps); parameters hold in between.
 
@@ -37,7 +40,7 @@ class TrainOptimizer:
     backward gave none (as in optax, where L2 and the moments still move).
     """
 
-    def __init__(self, params, cfg, steps_per_epoch: int):
+    def __init__(self, params, cfg, steps_per_epoch: Optional[int] = None):
         self.params = [p for p in params if p.requires_grad]
         name = cfg.optimizer.upper()
         if name == "ADAM":
@@ -49,10 +52,12 @@ class TrainOptimizer:
         else:
             raise NotImplementedError(f"optimizer {cfg.optimizer!r} (reference main.py:93)")
         self.iter_size = max(cfg.iter_size, 1)
-        transition = max(steps_per_epoch // self.iter_size, 1)
-        gamma = cfg.scheduler_gamma
+        self.gamma = cfg.scheduler_gamma
+        self.epochs = 0
+        self.transition = (None if steps_per_epoch is None
+                           else max(steps_per_epoch // self.iter_size, 1))
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.inner, lambda k: gamma ** (k // transition))
+            self.inner, lambda k: self.gamma ** self._stair(k))
         self.mini_step = 0
         self._acc: Optional[list] = None
 
@@ -91,6 +96,18 @@ class TrainOptimizer:
         self.inner.zero_grad(set_to_none=True)
         return True
 
+    def _stair(self, updates: int) -> int:
+        return self.epochs if self.transition is None else updates // self.transition
+
+    def set_epoch(self, epochs: int) -> None:
+        """`epochs` epochs are done. Without steps_per_epoch the rate is
+        gamma ** epochs from the next update on; with it, the update count
+        sets the rate."""
+        self.epochs = epochs
+        if self.transition is None:
+            for group, base in zip(self.inner.param_groups, self.scheduler.base_lrs):
+                group["lr"] = base * self.gamma ** self.epochs
+
     def state_dict(self) -> dict:
         return {"inner": self.inner.state_dict(), "scheduler": self.scheduler.state_dict(),
                 "mini_step": self.mini_step, "acc": self._acc}
@@ -102,7 +119,8 @@ class TrainOptimizer:
         self._acc = state["acc"]
 
 
-def make_optimizer(cfg, model: torch.nn.Module, steps_per_epoch: int) -> TrainOptimizer:
+def make_optimizer(cfg, model: torch.nn.Module,
+                   steps_per_epoch: Optional[int] = None) -> TrainOptimizer:
     return TrainOptimizer(model.parameters(), cfg, steps_per_epoch)
 
 

@@ -19,7 +19,6 @@ config is read (data/__init__.py `get_dataset`).
 
 from __future__ import annotations
 
-import math
 import os
 import time
 from typing import Dict, List
@@ -45,12 +44,15 @@ class Trainer:
     forward, backward and optimizer ms; that synchronises the card at each
     border, so it is off by default.
 
-    The learning rate falls once an epoch: the optimizer is given an
-    epoch's batches, ceil(min(len(train set), training_max_iter) /
-    batch_size). JAX's trainer gives it the epoch's pairs, so that at
-    batch_size B its rate falls once in B epochs; the port keeps the
-    reference's per-epoch ExpLR (ROADMAP Queue 3). training_max_iter and
-    val_max_iter count pairs, as in JAX."""
+    The learning rate falls once an epoch. At batch_size 1 an epoch is
+    min(len(train set), training_max_iter) batches, and the staircase
+    counts updates as JAX's does (optax.exponential_decay with
+    transition_steps = pairs // iter_size). At batch_size B > 1 an epoch's
+    number of batches depends on how its pairs fall into buckets (each
+    bucket's ragged tail is a batch of its own), so the rate falls at each
+    epoch's end (the reference's ExpLR); JAX's trainer gives its optimizer
+    the epoch's pairs there, so its rate falls once in B epochs.
+    training_max_iter and val_max_iter count pairs, as in JAX."""
 
     def __init__(self, cfg: Config, train_dataset=None, val_dataset=None, device="cuda",
                  time_steps: bool = False):
@@ -73,7 +75,7 @@ class Trainer:
         self.model = RoITr(cfg, device=self.device, seed=cfg.seed)
         pairs_per_epoch = min(len(self.train_dataset), cfg.training_max_iter)
         self.optimizer = make_optimizer(cfg, self.model,
-                                        math.ceil(pairs_per_epoch / max(cfg.batch_size, 1)))
+                                        pairs_per_epoch if cfg.batch_size <= 1 else None)
         self.step = 0
         self.start_epoch = 0
         self.best_metrics = init_best_metrics()
@@ -88,6 +90,7 @@ class Trainer:
         self.optimizer.load_state_dict(ckpt["optimizer"])
         self.step = ckpt["step"]
         self.start_epoch = ckpt["epoch"] + 1
+        self.optimizer.set_epoch(self.start_epoch)
         self.best_metrics.update(ckpt["best_metrics"])
         self.logger.write(f"resumed from {path} at epoch {self.start_epoch}\n")
 
@@ -119,6 +122,7 @@ class Trainer:
                                   f"{timer.avg:.3f}s/it\n")
                 # running averages, as the reference's scalar stream records
                 self.writer.write("train", self.step, meters.averages())
+        self.optimizer.set_epoch(epoch + 1)
         return meters.averages()
 
     def _pack(self) -> int:

@@ -131,6 +131,8 @@ def test_geo_embedding_kernel(dev, r, k, hidden):
     (20, 64, 16, torch.float32, 18),     # the 16-head build
     (9, 32, 4, torch.float32, 1),    # one valid key: the positional softmax is empty for it
     (8, 32, 4, torch.float32, 0),    # no valid key: zeros
+    (512, 512, 4, torch.bfloat16, 480),  # the 4DMatch width at the 32768 bucket
+    (128, 512, 4, torch.float32, 120),
 ])
 def test_rpe_attention_kernel(dev, n, d, h, dtype, valid):
     g = torch.Generator().manual_seed(n)
@@ -430,6 +432,57 @@ def test_train_step_on_card(dev):
     assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
     assert metrics["grads_finite"] == 1.0 and np.isfinite(metrics["loss"])
     assert any(not torch.equal(v, before[k]) for k, v in model.state_dict().items())
+
+
+def test_fdmatch_forward_and_train_step_on_card_match_cpu(dev):
+    """4DMatch (factor 2: hidden 512) at the 512 bucket on a flow pair, card
+    against CPU, same seeded weights. The with-GT forward (bf16 embedding
+    storage): nodes exactly, node descriptors cos >= 0.999, the adaptive
+    coarse correspondences as sets at most 5% of their union apart
+    (near-ties at the threshold), the four forward kernels launched. One
+    train step (fp32 storage): losses within 1e-3 relative, gradients'
+    cosine >= 0.9999 and each parameter within 1e-2 of max(|b|, 1e-3 of the
+    largest |b|), as chip_smoke.py's [train parity]; all seven kernels
+    launched."""
+    from torch_parity import flow_pair_arrays, torch_pair
+    from roitr_torch.models.roitr import RoITr
+
+    cfg = _tiny_cfg().replace(benchmark="4DMatch", num_est_coarse_corr=8,
+                              coarse_similarity_threshold=0.5)
+    arr = flow_pair_arrays(7, bucket=512, n_valid=480, m_valid=400)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        og = RoITr(cfg, device=dev, seed=0)(torch_pair(arr, dev), with_gt=True)
+        torch.cuda.synchronize()
+        assert all(kernels.launch_counts[k] > 0 for k in kernels.FORWARD_KERNELS), \
+            kernels.launch_counts
+        oc = RoITr(cfg, device="cpu", seed=0)(torch_pair(arr), with_gt=True)
+    og = {k: v.cpu() for k, v in og.items()}
+    for key in ("src_nodes", "tgt_nodes", "src_node_count", "tgt_node_count"):
+        assert torch.equal(og[key], oc[key]), key
+    for side in ("src", "tgt"):
+        nc = int(oc[f"{side}_node_count"])
+        node_cos = torch.nn.functional.cosine_similarity(og[f"{side}_node_feats"][:nc],
+                                                         oc[f"{side}_node_feats"][:nc])
+        assert float(node_cos.min()) >= 0.999
+    corr = lambda o: {(int(t), int(s)) for t, s, v in zip(  # noqa: E731
+        o["tgt_node_corr_indices"], o["src_node_corr_indices"], o["node_corr_masks"]) if v}
+    cg, cc = corr(og), corr(oc)
+    assert len(cc) > 0 and len(cg ^ cc) <= 0.05 * len(cg | cc), (len(cg), len(cc))
+
+    pcfg = cfg.replace(geo_embedding_storage="fp32", num_gt_coarse_corr=32)
+    kernels.reset_launch_counts()
+    lg, gg = _grad_step(RoITr(pcfg, device=dev, seed=0), torch_pair(arr, dev))
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in kernels.launch_counts.values()), kernels.launch_counts
+    lc, gc = _grad_step(RoITr(pcfg, device="cpu", seed=0), torch_pair(arr))
+    for k in lc:
+        assert abs(lg[k] - lc[k]) <= 1e-3 * max(abs(lc[k]), 1e-6), (k, lg[k], lc[k])
+    floor = 1e-3 * max(float(v.norm()) for v in gc.values())
+    for k in gc:
+        assert float((gg[k] - gc[k]).norm()) <= 1e-2 * max(float(gc[k].norm()), floor), k
+    fg, fc = (torch.cat([v.flatten() for v in g.values()]) for g in (gg, gc))
+    assert float(fg @ fc / (fg.norm() * fc.norm())) >= 0.9999
 
 
 def _grad_step(model, pair):
@@ -746,21 +799,40 @@ def test_match_batch_packed_on_card(dev, prep):
     seeds x 8 pairs, both preps): at most 2.9% apart, median 1.5%, no
     coarse correspondence apart, OT scores within 9.6e-6."""
     from roitr_torch.config import Config
-    from roitr_torch.data.packing import pack_pairs
     from roitr_torch.data.synthetic import make_pair_arrays
+
+    cfg = Config(benchmark="3DMatch", buckets=(1024,), points_limit=1024,
+                 host_pyramid=prep == "host", fine_matching_confidence_threshold=0.0)
+    _match_batch_against_match(dev, cfg, prep, make_pair_arrays, 9)
+
+
+@pytest.mark.parametrize("prep", ["host", "device"])
+def test_match_batch_packed_at_4dmatch_on_card(dev, prep):
+    """The same at 4DMatch (factor 2, the adaptive coarse matching whose
+    256-slot buffer holds every node pair of the 1024 bucket) on flow
+    pairs, the same bounds: the adaptive threshold's near-ties count as
+    coarse correspondences apart."""
+    from roitr_torch.config import Config
+    from roitr_torch.data.synthetic import make_flow_pair_arrays
+
+    cfg = Config(benchmark="4DMatch", buckets=(1024,), points_limit=1024,
+                 host_pyramid=prep == "host", fine_matching_confidence_threshold=0.0)
+    _match_batch_against_match(dev, cfg, prep, make_flow_pair_arrays, 19)
+
+
+def _match_batch_against_match(dev, cfg, prep, make_arrays, seed):
+    from roitr_torch.data.packing import pack_pairs
     from roitr_torch.models.roitr import RoITr
     from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
     from roitr_torch.serving import Matcher
     from roitr_torch.utils.packing import to_device
 
-    cfg = Config(benchmark="3DMatch", buckets=(1024,), points_limit=1024,
-                 host_pyramid=prep == "host", fine_matching_confidence_threshold=0.0)
     matcher = Matcher(cfg, RoITr(cfg, device="cpu", seed=1).state_dict(), prep=prep)
-    rng = np.random.RandomState(9)
+    rng = np.random.RandomState(seed)
     clouds = []
     for _ in range(8):
         n, m = rng.randint(600, 1001, size=2)
-        arr = make_pair_arrays(rng, 1024, n, m)
+        arr = make_arrays(rng, 1024, n, m)
         clouds.append((arr["src_points"][:n], arr["tgt_points"][:m]))
     kernels.reset_launch_counts()
     got = matcher.match_batch(clouds, batch_size=8, mode="packed")

@@ -178,9 +178,23 @@ def test_default_test_split_is_the_vendored_benchmark():
         assert got.infos["src"] == want.infos["src"]
 
 
-def test_get_dataset_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="4DMatch"):
-        get_dataset(Config(dataset="fdmatch", benchmark="4DMatch"), "test")
+def test_get_dataset_refuses_what_is_not_ported(tmp_path):
+    """The 4DMatch dataset is ported: a split of one `.npz` entry builds an
+    FDMatchDataset (tests/test_torch_fdmatch.py holds it against JAX's); a
+    dataset neither package has is still refused."""
+    from roitr_torch.data.fdmatch import FDMatchDataset
+    from roitr_torch.data.synthetic import make_flow_pair_arrays
+
+    arr = make_flow_pair_arrays(np.random.RandomState(0), 128, 120, 100)
+    os.makedirs(tmp_path / "split" / "4DMatch" / "scene0")
+    np.savez(tmp_path / "split" / "4DMatch" / "scene0" / "pair0.npz",
+             s_pc=arr["src_raw_points"][:120], t_pc=arr["tgt_points"][:100],
+             s2t_flow=arr["flow"][:120], rot=arr["rot"], trans=arr["trans"])
+    cfg = Config(dataset="fdmatch", benchmark="4DMatch", root=str(tmp_path), buckets=(128,),
+                 normal_knn=9, test_info="split/4DMatch")
+    ds = get_dataset(cfg, "test")
+    assert isinstance(ds, FDMatchDataset) and len(ds) == 1
+    assert int(ds[0]["src_count"]) == 120 and "metric_index" not in ds[0]
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(Config(dataset="kitti"), "test")
 

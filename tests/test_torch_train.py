@@ -408,6 +408,79 @@ def test_trainer_refuses_batches(tmp_path, monkeypatch):
                 device="cpu")
 
 
+class _TwoBuckets:
+    """Pairs of two buckets: items 0-4 of the 128 bucket, 5-9 of the 192."""
+
+    def __init__(self):
+        self.parts = (SyntheticPairs(5, 128, seed=0, normal_knn=9),
+                      SyntheticPairs(5, 192, seed=10, normal_knn=9))
+
+    def __len__(self):
+        return 10
+
+    def __getitem__(self, i):
+        return self.parts[i // 5][i % 5]
+
+
+def test_trainer_lr_falls_once_an_epoch_with_two_buckets(tmp_path, monkeypatch):
+    """Two buckets of 5 pairs at batch 2: an epoch is 6 batches (each
+    bucket's ragged tail a batch of its own), and the rate falls exactly
+    once an epoch, at its end. A staircase counting updates against
+    ceil(10 / 2) = 5 a transition would fall after the 5th batch and drift
+    a batch further each epoch."""
+    monkeypatch.chdir(tmp_path)
+    cfg = Config(**{**TRAINER_CFG, "batch_size": 2, "training_max_iter": 10,
+                    "scheduler_gamma": 0.5, "buckets": (128, 192)})
+    trainer = Trainer(cfg, _TwoBuckets(), SyntheticPairs(1, 128, seed=50, normal_knn=9),
+                      device="cpu")
+    opt = trainer.optimizer
+    rates = []
+    step = opt.step
+
+    def record(grads_finite):  # the rate each update is made with
+        rates.append(opt.inner.param_groups[0]["lr"])
+        return step(grads_finite)
+
+    monkeypatch.setattr(opt, "step", record)
+    for epoch in range(2):
+        trainer.train_epoch(epoch)
+    assert trainer.step == 12
+    assert rates == [cfg.lr] * 6 + [cfg.lr * 0.5] * 6
+    assert opt.inner.param_groups[0]["lr"] == pytest.approx(cfg.lr * 0.25, rel=1e-12)
+    # resumed after epoch 1, the staircase stands where it stood
+    trainer._save("model_1", 1)
+    path = os.path.join(trainer.ckpt_dir, "model_1.pth")
+    resumed = Trainer(cfg.replace(pretrain=path), _TwoBuckets(),
+                      SyntheticPairs(1, 128, seed=50, normal_knn=9), device="cpu")
+    assert resumed.start_epoch == 2 and resumed.optimizer.epochs == 2
+    assert resumed.optimizer.inner.param_groups[0]["lr"] == pytest.approx(cfg.lr * 0.25)
+    assert resumed.optimizer.scheduler.lr_lambdas[0](resumed.optimizer.scheduler.last_epoch) \
+        == pytest.approx(0.25)
+
+
+def test_lr_at_batch_one_and_iter_size_four_is_jax_s():
+    """Batch 1, iter_size 4 (the 4DMatch training config): the Trainer's
+    optimizer counts updates against the epoch's pairs // iter_size, as
+    JAX's optax.exponential_decay(transition_steps=pairs // iter_size,
+    staircase) does, over three epochs of 8 pairs; the epoch index it is
+    told leaves that staircase alone."""
+    pairs, cfg_kw = 8, dict(lr=1e-2, iter_size=4, scheduler_gamma=0.5)
+    module = torch.nn.ParameterDict({"w": torch.nn.Parameter(torch.zeros(3))})
+    opt = make_optimizer(Config(**cfg_kw), module, steps_per_epoch=pairs)
+    schedule = optax.exponential_decay(1e-2, transition_steps=pairs // 4, decay_rate=0.5,
+                                       staircase=True)
+    updates = 0
+    for epoch in range(3):
+        for _ in range(pairs):
+            module["w"].grad = torch.ones(3)
+            lr = opt.inner.param_groups[0]["lr"]
+            if opt.step(True):
+                assert lr == pytest.approx(float(schedule(updates)), rel=1e-6), updates
+                updates += 1
+        opt.set_epoch(epoch + 1)
+    assert updates == 6
+
+
 def test_trainer_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     if torch.cuda.is_available():

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from roitr_torch.data.preprocess import estimate_normals_np, normal_redirect_np
-from roitr_torch.data.synthetic import make_pair_arrays
+from roitr_torch.data.synthetic import make_flow_pair_arrays, make_pair_arrays
 
 TINY = dict(
     benchmark="3DMatch",
@@ -26,12 +26,12 @@ TINY = dict(
 )
 
 
-def pair_arrays(seed: int, bucket: int = 256, n_valid: int = 224, m_valid: int = 192):
-    """Seeded synthetic pair with host normals (numpy dict)."""
-    rng = np.random.RandomState(seed)
-    arr = make_pair_arrays(rng, bucket, n_valid, m_valid)
-    for side in ("src", "tgt"):
-        pts = arr[f"{side}_points"]
+def _with_normals(arr, bucket: int):
+    """Host normals of the raw source and of the target, as the datasets
+    estimate them (a rigid pair's raw source is its source), and unit
+    features."""
+    for side, key in (("src", "src_raw_points"), ("tgt", "tgt_points")):
+        pts = arr[key]
         cnt = int(arr[f"{side}_count"])
         nrm = np.zeros_like(pts)
         nrm[:cnt] = normal_redirect_np(pts[:cnt], estimate_normals_np(pts[:cnt], 9),
@@ -39,6 +39,19 @@ def pair_arrays(seed: int, bucket: int = 256, n_valid: int = 224, m_valid: int =
         arr[f"{side}_normals"] = nrm
         arr[f"{side}_feats"] = np.ones((bucket, 1), np.float32)
     return arr
+
+
+def pair_arrays(seed: int, bucket: int = 256, n_valid: int = 224, m_valid: int = 192):
+    """Seeded synthetic pair with host normals (numpy dict)."""
+    return _with_normals(make_pair_arrays(np.random.RandomState(seed), bucket, n_valid, m_valid),
+                         bucket)
+
+
+def flow_pair_arrays(seed: int, bucket: int = 256, n_valid: int = 224, m_valid: int = 192):
+    """Seeded synthetic non-rigid pair (make_flow_pair_arrays) with host
+    normals (numpy dict)."""
+    return _with_normals(make_flow_pair_arrays(np.random.RandomState(seed), bucket, n_valid,
+                                               m_valid), bucket)
 
 
 def torch_pair(arr, device="cpu"):
