@@ -84,6 +84,23 @@ Phases, each of which exits non-zero on failure:
                exact, widths 512), the Tester (configs/test/fdmatch.yaml,
                host and device prep, full and c2f dumps) with the port's
                NFMR / IR evaluation, and one Matcher.match request
+  14. bf16     compute_dtype="bfloat16" at full 3DMatch width: train steps of
+               two 20k-30k-point pairs with bf16 and fp32 compute in turns
+               (step ms split three ways, peak memory, each step's launches
+               required to be a train step's), the bf16 gradient against
+               the fp32 one, card against CPU in bf16 at the 4096 bucket
+               (node descriptors, losses, gradients), and Matcher.match in
+               bf16 and fp32 in turns (wall ms, node descriptor cosine)
+  15. remat    remat_local off and on in turns, the same steps (ms, peak
+               memory, launches), one step's gradients compared, and one
+               step at 4DMatch's width (factor 2) for its peak memory
+  16. workers  the Tester under host prep with full dumps on 16 pairs of
+               20k-30k points, num_workers 0 and min(8, cores) in turns:
+               s/pair, the device's busy share (torch.profiler), launches
+               exact, dumps equal byte for byte; then a full-width Trainer
+               whose pairs the pool prepares (2 train steps, 1 validation
+               step, launches exact)
+The phases before [workers] prepare pairs in process (num_workers 0).
 It then prints one JSON line with each kernel's numbers, the card's name
 and power limit, and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1138,20 +1155,47 @@ DUMP_FILE_KEYS = {"src_raw_pcd", "src_pcd", "tgt_pcd", "src_nodes", "tgt_nodes",
                   "trans"}
 
 
+def _write_tdmatch_split(rng, sizes, base):
+    """Synthetic pairs of the given (source, target) counts in the
+    reference's 3DMatch layout under `base`: `.pth` fragments under
+    base/indoor/test/scene<i> and the info pickle base/test_split.pkl.
+    Returns (data root, info path)."""
+    import pickle
+
+    from roitr_torch.data.synthetic import make_pair_arrays
+
+    infos = {"rot": [], "trans": [], "src": [], "tgt": [], "overlap": []}
+    for i, (n, m) in enumerate(sizes):
+        arr = make_pair_arrays(rng, 32768, n, m)
+        scene = f"test/scene{i}"
+        os.makedirs(os.path.join(base, "indoor", scene))
+        for j, cloud in ((2 * i, arr["src_points"][:n]), (2 * i + 1, arr["tgt_points"][:m])):
+            torch.save(torch.from_numpy(cloud.copy()),
+                       os.path.join(base, "indoor", scene, f"cloud_bin_{j}.pth"))
+        infos["src"].append(f"{scene}/cloud_bin_{2 * i}.pth")
+        infos["tgt"].append(f"{scene}/cloud_bin_{2 * i + 1}.pth")
+        infos["rot"].append(arr["rot"])
+        infos["trans"].append(arr["trans"])
+        infos["overlap"].append(0.7)
+    info = os.path.join(base, "test_split.pkl")
+    with open(info, "wb") as f:
+        pickle.dump(infos, f)
+    return os.path.join(base, "indoor"), info
+
+
 def phase_tester(rng):
     """The Tester at full 3DMatch width from configs/test/tdmatch.yaml on a
     test split in the reference layout (three synthetic pairs of 20k-30k
     points, `.pth` fragments and an info pickle, in a temporary directory):
     host prep (host pyramids) with full dumps, device prep with full dumps,
     device prep with c2f dumps, and packed batches of two under host and
-    device prep; counters zeroed before each run and read after it."""
-    import pickle
-
+    device prep; counters zeroed before each run and read after it. The
+    pairs are prepared in the Tester's process (num_workers 0; the pool is
+    [workers]'s)."""
     from roitr_torch.config import load_config
     from roitr_torch.data import get_dataset
     from roitr_torch.data.loader import dict_to_pair
     from roitr_torch.data.pyramid import build_cloud_pyramid
-    from roitr_torch.data.synthetic import make_pair_arrays
     from roitr_torch.eval import get_trainer
     from roitr_torch.eval.tester import compact_corr
     from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
@@ -1164,26 +1208,11 @@ def phase_tester(rng):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            infos = {"rot": [], "trans": [], "src": [], "tgt": [], "overlap": []}
-            for i, (n, m) in enumerate(sizes):
-                arr = make_pair_arrays(rng, 32768, n, m)
-                scene = f"test/scene{i}"
-                os.makedirs(os.path.join("indoor", scene))
-                for j, cloud in ((2 * i, arr["src_points"][:n]), (2 * i + 1, arr["tgt_points"][:m])):
-                    torch.save(torch.from_numpy(cloud.copy()),
-                               os.path.join("indoor", scene, f"cloud_bin_{j}.pth"))
-                infos["src"].append(f"{scene}/cloud_bin_{2 * i}.pth")
-                infos["tgt"].append(f"{scene}/cloud_bin_{2 * i + 1}.pth")
-                infos["rot"].append(arr["rot"])
-                infos["trans"].append(arr["trans"])
-                infos["overlap"].append(0.7)
-            with open("test_split.pkl", "wb") as f:
-                pickle.dump(infos, f)
+            root, info = _write_tdmatch_split(rng, sizes, tmp)
             yaml_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                                      "test", "tdmatch.yaml")
-            overrides = dict(root=os.path.join(tmp, "indoor"),
-                             test_info=os.path.join(tmp, "test_split.pkl"),
-                             pretrain=os.path.join(tmp, "weights.pth"), knn_method="exact")
+            overrides = dict(root=root, test_info=info, pretrain=os.path.join(tmp, "weights.pth"),
+                             knn_method="exact", num_workers=0)
             print(f"[tester] {yaml_path} with overrides {overrides}", flush=True)
             cfg = load_config(yaml_path, **overrides)
             torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
@@ -1440,7 +1469,8 @@ def phase_training(rng):
 
     cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                    "configs", "train", "tdmatch.yaml"),
-                      max_epoch=1, training_max_iter=3, val_max_iter=1, verbose_freq=1)
+                      max_epoch=1, training_max_iter=3, val_max_iter=1, verbose_freq=1,
+                      num_workers=0)
     seed = int(rng.randint(1 << 30))
     t0 = time.time()
     train_set = SyntheticPairs(3, 32768, counts=(20000, 30000), seed=seed)
@@ -1533,10 +1563,12 @@ PACKED_VAL_STEP = {"fps": 0, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn":
 
 
 def _train_cfg(**overrides):
+    """configs/train/tdmatch.yaml through load_config; the pairs prepared in
+    process (num_workers 0) unless the overrides say otherwise."""
     from roitr_torch.config import load_config
 
     return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                                    "train", "tdmatch.yaml"), **overrides)
+                                    "train", "tdmatch.yaml"), **{"num_workers": 0, **overrides})
 
 
 def _step_ms(fn):
@@ -1719,11 +1751,12 @@ VAL_STEP = {"fps": 3, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1,
 def _fd_cfg(kind: str, **overrides):
     """configs/<kind>/fdmatch.yaml through load_config with the port's one
     override, knn_method "exact" (the test config's "approx" is a TPU
-    operator)."""
+    operator), and the pairs prepared in process (num_workers 0)."""
     from roitr_torch.config import load_config
 
     return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                                    kind, "fdmatch.yaml"), knn_method="exact", **overrides)
+                                    kind, "fdmatch.yaml"),
+                       **{"knn_method": "exact", "num_workers": 0, **overrides})
 
 
 def _write_flow_entries(rng, base, sizes):
@@ -1999,6 +2032,329 @@ def _fdmatch_tester(tmp, split, rng):
                     fail(f"[4dmatch] Tester {prep}: c2f dump's {k} differs from the full dump's")
 
 
+# ---- [bf16], [remat], [workers]: the rest of the one-card Config
+
+# pairs of 20k-30k points at the 32768 bucket for the [bf16] and [remat] steps
+FULL_SIZES = [(26000, 23000), (21000, 28500)]
+
+
+def _count_main(launches, into):
+    for k, v in launches.items():
+        into[k] = into.get(k, 0) + v
+
+
+def _timed_steps(models, pairs, order, tag, main):
+    """Train steps of `models` (name -> (model, optimizer)) in `order`, each
+    over every pair: counters zeroed before and read after each step, which
+    must launch TRAIN_STEP exactly; returns {name: [(forward, backward,
+    optimizer ms, peak GiB), ...]}."""
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.parallel.train_step import train_step
+
+    rows = {name: [] for name in models}
+    for name in order:
+        model, opt = models[name]
+        for pair in pairs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t = {}
+            metrics = train_step(model, opt, pair, torch.Generator().manual_seed(0), t)
+            launches = dict(launch_counts)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _count_main(launches, main)
+            rows[name].append((t["forward_ms"], t["backward_ms"], t["optimizer_ms"], peak))
+            print(f"{tag} {name} step: forward {t['forward_ms']:.1f} ms, backward "
+                  f"{t['backward_ms']:.1f} ms, optimizer {t['optimizer_ms']:.1f} ms, "
+                  f"{sum(t.values()):.1f} ms; max_memory_allocated {peak:.2f} GiB; loss "
+                  f"{metrics['loss']:.4f}, grads_finite {metrics['grads_finite']:.0f}",
+                  flush=True)
+            if metrics["grads_finite"] != 1.0 or not np.isfinite(metrics["loss"]):
+                fail(f"{tag} {name}: a loss or gradient was not finite")
+            if launches != TRAIN_STEP:
+                fail(f"{tag} {name} step launched {launches}, expected {TRAIN_STEP}")
+    for name, r in rows.items():
+        later = r[len(pairs):]  # the first step of each mode warms its libraries up
+        ms = ", ".join(f"{sum(x[:3]):.1f}" for x in later)
+        print(f"{tag} {name}: step ms (after the first) {ms}; peak "
+              f"{max(x[3] for x in r):.2f} GiB", flush=True)
+    return rows
+
+
+def _grad_cosines(ga, gb):
+    """(global cosine, worst per-parameter cosine, its name) over the
+    parameters whose gradient norm is at least 1e-3 of the largest (the
+    score biases whose gradient is zero but for rounding are left out)."""
+    fa = torch.cat([v.flatten() for v in ga.values()])
+    fb = torch.cat([v.flatten() for v in gb.values()])
+    top = max(float(v.norm()) for v in gb.values())
+    worst, worst_key = 1.0, ""
+    for k in gb:
+        if float(gb[k].norm()) >= 1e-3 * top:
+            c = float(ga[k].flatten() @ gb[k].flatten() / (ga[k].norm() * gb[k].norm()))
+            if c < worst:
+                worst, worst_key = c, k
+    return float(fa @ fb / (fa.norm() * fb.norm())), worst, worst_key
+
+
+def phase_bf16(rng, main):
+    """bf16 compute (compute_dtype="bfloat16") at full 3DMatch width: train
+    steps of 20k-30k-point pairs (32768 bucket) with bf16 and fp32 compute
+    in turns, launches exact (bf16 leaves the kernels' dtypes alone), step
+    ms split three ways and peak memory; the bf16 gradient against the fp32
+    one on the card; card against CPU in bf16 at the 4096 bucket; one
+    Matcher.match request in bf16 against fp32."""
+    from roitr_torch.config import Config
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.parallel.train_step import make_optimizer
+    from roitr_torch.serving import Matcher
+
+    t_phase = time.time()
+    cfg32 = _train_cfg()
+    cfg16 = cfg32.replace(compute_dtype="bfloat16")
+    arrs = [(make_pair_arrays(rng, 32768, n, m), n, m) for n, m in FULL_SIZES]
+    pairs = [_pair(a, n, m, "cuda") for a, n, m in arrs]
+    models = {}
+    for name, c in (("fp32", cfg32), ("bf16", cfg16)):
+        model = RoITr(c, device="cuda", seed=0)
+        models[name] = (model, make_optimizer(c, model))
+    print(f"[bf16] configs/train/tdmatch.yaml, compute_dtype float32 and bfloat16; pairs "
+          f"{FULL_SIZES} in the 32768 bucket", flush=True)
+    _timed_steps(models, pairs, ("fp32", "bf16", "bf16", "fp32"), "[bf16]", main)
+
+    # the bf16 gradient against the fp32 one, same weights, pair and draws
+    l32, g32 = _grad_step(RoITr(cfg32, device="cuda", seed=0), pairs[0])
+    l16, g16 = _grad_step(RoITr(cfg16, device="cuda", seed=0), pairs[0])
+    cos, worst, worst_key = _grad_cosines(g16, g32)
+    print(f"[bf16] one step's gradient, bf16 against fp32 compute on the card: cosine over "
+          f"all {cos:.6f} (tol >= 0.98, JAX's descriptor bound), worst parameter {worst:.4f} "
+          f"({worst_key}); loss bf16 {l16['loss']:.5f} fp32 {l32['loss']:.5f}", flush=True)
+    if not (cos >= 0.98 and all(torch.isfinite(v).all() for v in g16.values())):
+        fail("[bf16] the bf16 gradient strays from the fp32 one")
+
+    # card against CPU, both in bf16, at the 4096 bucket
+    t0 = time.time()
+    pcfg = Config(benchmark="3DMatch", compute_dtype="bfloat16", geo_embedding_storage="fp32")
+    arr = make_pair_arrays(rng, 4096, 3900, 3600)
+    feats = {}
+
+    def step(device):
+        """_grad_step, keeping the forward's node descriptors."""
+        model = RoITr(pcfg, device=device, seed=0)
+        hook = model.register_forward_hook(lambda _, args, out: feats.__setitem__(device, {
+            k: out[k][:int(out[k.replace("feats", "count")])].detach().cpu()
+            for k in ("src_node_feats", "tgt_node_feats")}))
+        try:
+            return _grad_step(model, _pair(arr, 3900, 3600, device))
+        finally:
+            hook.remove()
+
+    lg, gg = step("cuda")
+    lc, gc = step("cpu")
+    node_cos = min(float(_cos(feats["cuda"][k], feats["cpu"][k]).min()) for k in feats["cpu"])
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+    cos4, worst4, worst4_key = _grad_cosines(gg, gc)
+    print(f"[bf16] bucket 4096, card against CPU in bf16 ({time.time() - t0:.1f} s): node "
+          f"descriptors min cos {node_cos:.6f} (tol >= 0.999); losses largest relative "
+          f"difference {loss_err:.3g} (tol 1e-2); gradients cosine over all {cos4:.6f} (tol "
+          f">= 0.99), worst parameter {worst4:.4f} ({worst4_key})", flush=True)
+    if not (node_cos >= 0.999 and loss_err <= 1e-2 and cos4 >= 0.99):
+        fail("[bf16] card and CPU disagree in bf16")
+
+    # one Matcher.match request in bf16 against fp32, same weights
+    state_dict = models["fp32"][0].state_dict()
+    a, n, m = arrs[0]
+    src, tgt = a["src_points"][:n], a["tgt_points"][:m]
+    res, walls = {}, {}
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        mcfg = Config(benchmark="3DMatch", compute_dtype="bfloat16" if name == "bf16"
+                      else "float32")
+        matcher = Matcher(mcfg, state_dict, device="cuda", descriptors=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res[name] = matcher.match(src, tgt)
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append((time.time() - t0) * 1e3)
+    desc_cos = min(float(_cos(torch.from_numpy(res["bf16"][k]), torch.from_numpy(res["fp32"][k]))
+                         .min()) for k in ("src_node_desc", "tgt_node_desc"))
+    print(f"[bf16] Matcher.match, {n} + {m} points (host normals included): wall bf16 "
+          f"{', '.join(f'{w:.1f}' for w in walls['bf16'])} ms, fp32 "
+          f"{', '.join(f'{w:.1f}' for w in walls['fp32'])} ms; node descriptors bf16 against "
+          f"fp32 min cos {desc_cos:.6f} (tol >= 0.98); {time.time() - t_phase:.1f} s in all",
+          flush=True)
+    if not (desc_cos >= 0.98 and all(np.isfinite(v).all() for v in res["bf16"].values())):
+        fail("[bf16] bf16 serving strays from fp32")
+
+
+def phase_remat(rng, main):
+    """remat_local at full 3DMatch width: train steps with it off and on in
+    turns (step ms, peak memory, launches exact), one step's gradients with
+    and without; then one step at 4DMatch's width (factor 2) with and
+    without, for the peak memory."""
+    from roitr_torch.data.synthetic import make_flow_pair_arrays, make_pair_arrays
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.parallel.train_step import make_optimizer
+
+    t_phase = time.time()
+    cfg = _train_cfg()
+    cfg_r = cfg.replace(remat_local=True)
+    pairs = [_pair(make_pair_arrays(rng, 32768, n, m), n, m, "cuda") for n, m in FULL_SIZES]
+    models = {}
+    for name, c in (("off", cfg), ("on", cfg_r)):
+        model = RoITr(c, device="cuda", seed=0)
+        models[name] = (model, make_optimizer(c, model))
+    _timed_steps(models, pairs, ("off", "on", "on", "off"), "[remat]", main)
+    lo, go = _grad_step(RoITr(cfg, device="cuda", seed=0), pairs[0])
+    lr, gr = _grad_step(RoITr(cfg_r, device="cuda", seed=0), pairs[0])
+    # the same ops run again, but the gather backward's atomics may order
+    # sums differently from run to run on the card
+    _compare_grads("[remat]", "remat_local on vs off, one step at 32768", [lr], gr, [lo], go)
+
+    fd = _fd_cfg("train")
+    n, m = 27000, 24000
+    pair = _pair(make_flow_pair_arrays(rng, 32768, n, m), n, m, "cuda")
+    peaks = {}
+    for name, c in (("off", fd), ("on", fd.replace(remat_local=True)),
+                    ("off", fd), ("on", fd.replace(remat_local=True))):
+        model = RoITr(c, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        _grad_step(model, pair)
+        torch.cuda.synchronize()
+        peaks.setdefault(name, []).append(
+            (torch.cuda.max_memory_allocated() / 2**30, (time.time() - t0) * 1e3,
+             base / 2**30))
+        del model
+    print(f"[remat] 4DMatch width (factor 2), one step of {n} + {m} points: max_memory_allocated "
+          + "; ".join(f"{k} {', '.join(f'{p:.2f} GiB ({ms:.0f} ms)' for p, ms, _ in v)}"
+                      for k, v in peaks.items())
+          + f" (weights and inputs {peaks['off'][0][2]:.2f} GiB); {time.time() - t_phase:.1f} "
+          "s in all", flush=True)
+    if not min(p for p, _, _ in peaks["on"]) < min(p for p, _, _ in peaks["off"]):
+        fail("[remat] remat_local did not lower the peak memory")
+
+
+def phase_workers(rng, main):
+    """The worker pool: the Tester from configs/test/tdmatch.yaml under host
+    prep (host pyramids), full dumps, on 16 synthetic pairs of 20k-30k
+    points in the reference layout, with num_workers 0 and min(8, cores) in
+    turns: s/pair, the device's busy share (torch.profiler), launches
+    exact, every dump equal byte for byte; the time to the first forward
+    and the median gap between forwards (the steady state, the pool's start
+    left out) beside one pair's host prep in this process and a worker's
+    start (`python -S -c "import torch"` in the workers' environment); then
+    a Trainer from configs/train/tdmatch.yaml whose pairs the pool prepares
+    (the same split, 2 train steps and 1 validation step)."""
+    import hashlib
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from roitr_torch.config import load_config
+    from roitr_torch.data import get_dataset
+    from roitr_torch.data.worker_pool import worker_env
+    from roitr_torch.eval import get_trainer
+    from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    cores = os.cpu_count() or 1
+    workers = min(8, cores)
+    sizes = [(int(a), int(b)) for a, b in rng.randint(20000, 30001, size=(16, 2))]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            root, info = _write_tdmatch_split(rng, sizes, tmp)
+            cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                           "test", "tdmatch.yaml"),
+                              root=root, test_info=info, pretrain=os.path.join(tmp, "w.pth"),
+                              knn_method="exact")
+            torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
+            ds = get_dataset(cfg, "test")
+            prep = []
+            for i in range(2):
+                t0 = time.time()
+                ds[i]
+                prep.append(time.time() - t0)
+            t0 = time.time()
+            subprocess.run([sys.executable, "-S", "-c", "import torch"], env=worker_env(),
+                           check=True)
+            start = time.time() - t0
+            print(f"[workers] os.cpu_count() {cores}; Tester from configs/test/tdmatch.yaml "
+                  f"(host_pyramid {cfg.host_pyramid}, dump_mode {cfg.dump_mode}) on "
+                  f"{len(sizes)} pairs, num_workers 0 and {workers} in turns; one pair's host "
+                  f"prep in this process {', '.join(f'{t:.3f}' for t in prep)} s; a worker's "
+                  f"interpreter with torch imported (alone) {start:.2f} s", flush=True)
+            digests, rows = {}, {}
+            for turn, nw in enumerate((0, workers, workers, 0)):
+                run_cfg = cfg.replace(exp_dir=f"workers{nw}_{turn}", num_workers=nw)
+                tester = get_trainer(run_cfg)
+                stamps = []
+                tester.model.register_forward_pre_hook(lambda *_: stamps.append(time.time()))
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.time()
+                    tester.test()
+                    torch.cuda.synchronize()
+                    wall = time.time() - t0
+                launches = dict(launch_counts)
+                events = [e for e in prof.key_averages()
+                          if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                busy = sum(e.self_device_time_total for e in events) / 1e6
+                share = f"{busy / wall:.1%}" if busy > 0 else "not measured (no device events)"
+                rows.setdefault(nw, []).append(wall / len(sizes))
+                files = [os.path.join(tester.snapshot_dir, f"{i}.pth") for i in range(len(sizes))]
+                digests[turn] = [hashlib.sha256(open(f, "rb").read()).hexdigest() for f in files]
+                for f in files:
+                    os.remove(f)
+                gap = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
+                print(f"[workers] num_workers {nw}: {wall / len(sizes):.3f} s/pair over "
+                      f"{len(sizes)} pairs ({wall:.1f} s, the pool's start included); first "
+                      f"forward after {stamps[0] - t0:.2f} s, then a forward every {gap:.3f} s "
+                      f"(median); device busy {busy:.2f} s = {share} of the run; launches "
+                      f"{launches}", flush=True)
+                want = {k: v * len(sizes) for k, v in FORWARD_LAUNCHES.items()}
+                want["fps"] = 0  # host pyramids
+                if {k: launches[k] for k in FORWARD_KERNELS} != want:
+                    fail(f"[workers] Tester launches {launches}, expected {want}")
+            if any(d != digests[0] for d in digests.values()):
+                apart = [(t, i) for t, d in digests.items() for i, (a, b) in
+                         enumerate(zip(d, digests[0])) if a != b]
+                fail(f"[workers] dumps differ between runs (run, pair): {apart}")
+            print(f"[workers] all {len(digests)} runs' {len(sizes)} dumps equal byte for byte; "
+                  f"s/pair num_workers 0: {', '.join(f'{x:.3f}' for x in rows[0])}, "
+                  f"{workers}: {', '.join(f'{x:.3f}' for x in rows[workers])}", flush=True)
+
+            # a full-width Trainer whose pairs (normals, host-side) the pool prepares
+            tcfg = _train_cfg(root=root, train_info=info, val_info=info, num_workers=workers,
+                              max_epoch=1, training_max_iter=2, val_max_iter=1, verbose_freq=1)
+            trainer = Trainer(tcfg, device="cuda", time_steps=True)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.time()
+            best = trainer.train()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(launch_counts)
+            _count_main(launches, main)
+        finally:
+            os.chdir(cwd)
+    steps = ", ".join(f"{sum(t.values()):.1f}" for t in trainer.step_times)
+    print(f"[workers] Trainer, num_workers {workers}: {trainer.step} train steps ({steps} ms) "
+          f"+ 1 validation step in {wall:.1f} s (the pools' start included); val {best}; "
+          f"launches {launches}; {time.time() - t_phase:.1f} s in all", flush=True)
+    want = {k: 2 * TRAIN_STEP[k] + VAL_STEP[k] for k in TRAIN_STEP}
+    if trainer.step != 2 or launches != want or not np.isfinite(best["loss"]):
+        fail(f"[workers] Trainer: {trainer.step} steps, launches {launches} (expected {want}), "
+             f"val {best}")
+
+
 SOURCES = {
     "fps": ("roitr_torch/csrc/fps.cu", "roitr_tpu/ops/pallas/fps_kernel.py:47"),
     "geo_embedding": ("roitr_torch/csrc/geo_embedding.cu",
@@ -2034,6 +2390,11 @@ def main() -> int:
     packed_launches = phase_packed_training(rng, launches)
     phase_packed_train_parity(rng)
     fd_launches = phase_fdmatch(rng)
+    # the train steps of the last three phases, counted as the Trainer runs'
+    later = {}
+    phase_bf16(rng, later)
+    phase_remat(rng, later)
+    phase_workers(rng, later)
 
     kernels = []
     for name, row in rows.items():
@@ -2042,9 +2403,11 @@ def main() -> int:
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # the three training runs: [training], [packed training] and
-            # the 4DMatch Trainer of [4dmatch]
-            "launches": launches[name] + packed_launches[name] + fd_launches[name],
+            # the training runs: [training], [packed training], the 4DMatch
+            # Trainer of [4dmatch], the train steps of [bf16] and [remat]
+            # and the Trainer of [workers]
+            "launches": (launches[name] + packed_launches[name] + fd_launches[name]
+                         + later.get(name, 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             # exps and logs on the special-function units are operations

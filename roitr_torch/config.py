@@ -39,8 +39,9 @@ class Config:
     factor: Optional[int] = None
 
     # ---- numerics ----
-    # float32 | bfloat16 (geometry stays fp32); the port computes in float32
-    # and refuses bfloat16 (a later slice)
+    # float32 | bfloat16: the dtype every Linear and LayerNorm of the backbone
+    # and the global transformer computes in (fp32 parameters); geometry,
+    # the geometric embedding, descriptors, OT and losses stay fp32
     compute_dtype: str = "float32"
 
     # ---- optim ----
@@ -115,8 +116,7 @@ class Config:
     # a TPU-only operator and raises)
     knn_method: str = "exact"
     # recompute the backbone's local attention in the backward instead of
-    # keeping its activations (the JAX package's memory lever); not ported:
-    # the port refuses True
+    # keeping its activations (the JAX package's memory lever)
     remat_local: bool = False
     # storage dtype of the global transformer's (N, N, hidden) geometric
     # embedding: "bf16" (default; halves the bytes the RPE attention reads)
@@ -148,6 +148,8 @@ class Config:
     val_max_iter: int = 500
     scheduler_interval: int = 1
     snapshot_interval: int = 1
+    # preprocessing worker subprocesses of the Trainer's loader and the
+    # Tester (data/worker_pool.py), at most one a core
     num_workers: int = 8
 
     # ---- parallelism ----

@@ -12,8 +12,9 @@ from one pinned buffer (utils/packing.py).
 Unlike JAX's, a bucket's ragged tail is emitted as a smaller batch, never
 filled by repeating its last pair: an eager step has no compiled program
 per batch size to reuse, and a repeated pair would weigh twice in that
-step's mean gradient. Worker processes and per-host sharding are later
-slices of the port.
+step's mean gradient. With `num_workers` > 0 the items are prepared in
+that many worker subprocesses (data/worker_pool.py), in the same order;
+per-host sharding comes with DDP.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from roitr_torch.data.packing import pack_pairs
 from roitr_torch.data.pyramid import pyramid_to_torch
+from roitr_torch.data.worker_pool import WorkerPool
 from roitr_torch.models.roitr import PairInputs
 from roitr_torch.utils.packing import to_device
 
@@ -93,17 +95,20 @@ class BucketBatcher:
 
 def iterate_batches(dataset, batch_size: int = 1, shuffle: bool = False, seed: int = 0,
                     max_items: Optional[int] = None, prefetch: int = 2, pack: int = 0,
-                    device="cpu") -> Iterator[Batch]:
+                    device="cpu", num_workers: int = 0) -> Iterator[Batch]:
     """Yield batches of the dataset's items on `device`, in the JAX
     loader's order, prepared up to `prefetch` batches ahead on one
-    background thread (dataset reads, packing and the host-to-device
-    copy). batch_size 1 yields one PairInputs an item; pack > 1 packs every
-    `pack` pairs of a batch (see BucketBatcher)."""
+    background thread (packing and the host-to-device copy, and the dataset
+    reads, or with num_workers > 0 the reads of a WorkerPool's items).
+    batch_size 1 yields one PairInputs an item; pack > 1 packs every
+    `pack` pairs of a batch (see BucketBatcher). The pool is closed when
+    the iteration ends, fails or is abandoned."""
     indices = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(indices)
-    if max_items is not None:
-        indices = indices[:max_items]
+    indices = [int(i) for i in indices[:max_items]]
+    pool = WorkerPool(dataset, num_workers) if num_workers > 0 and indices else None
+    items = pool.imap(indices) if pool is not None else (dataset[i] for i in indices)
 
     q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
     stop = threading.Event()
@@ -121,10 +126,10 @@ def iterate_batches(dataset, batch_size: int = 1, shuffle: bool = False, seed: i
     def worker():
         batcher = BucketBatcher(batch_size, pack=pack)
         try:
-            for i in indices:
+            for item in items:
                 if stop.is_set():
                     return
-                batch = batcher.add(_host_pair(dataset[int(i)]))
+                batch = batcher.add(_host_pair(item))
                 if batch is not None and not put(to_device(batch, device)):
                     return
             for batch in batcher.flush():
@@ -148,3 +153,5 @@ def iterate_batches(dataset, batch_size: int = 1, shuffle: bool = False, seed: i
     finally:
         stop.set()
         thread.join()
+        if pool is not None:
+            pool.close()

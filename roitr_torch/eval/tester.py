@@ -13,8 +13,10 @@ Dumps are torch `.pth` files with the JAX package's keys and dtypes.
 
 With `cfg.packed_batch` and `cfg.batch_size` B > 1, B same-bucket pairs
 go through one packed forward (data/packing.py) and are dumped one file a
-pair, as the single-pair loop dumps them. Sharding over several cards
-(`dp_size > 1`) and the worker pool are later slices of the port.
+pair, as the single-pair loop dumps them. With `cfg.num_workers` > 1
+the pairs are prepared in that many worker subprocesses
+(data/worker_pool.py, at most one a core), in order, while the card runs
+the forwards. Sharding over several cards (`dp_size > 1`) comes with DDP.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from roitr_torch.config import Config
 from roitr_torch.data import get_dataset
 from roitr_torch.data.loader import dict_to_pair
 from roitr_torch.data.packing import pack_pairs
+from roitr_torch.data.worker_pool import WorkerPool
 from roitr_torch.models.roitr import RoITr, resolve_device
 from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
 from roitr_torch.train.checkpoint import load_checkpoint
@@ -232,14 +235,24 @@ class Tester:
         data = trim_outputs(out, dict_to_pair(item), metric_index=item.get("metric_index"))
         dump_pair(os.path.join(self.snapshot_dir, str(idx)), data)
 
-    def _groups(self, n: int):
+    def _items(self, n: int):
+        """(pool or None, the dataset's first n items in order): from
+        min(cfg.num_workers, cores) worker subprocesses when that is more
+        than one and there is more than one pair (JAX's Tester._items),
+        else read here."""
+        workers = min(int(self.cfg.num_workers), os.cpu_count() or 1)
+        if workers > 1 and n > 1:
+            pool = WorkerPool(self.dataset, workers)
+            return pool, pool.imap(range(n))
+        return None, (self.dataset[i] for i in range(n))
+
+    def _groups(self, items):
         """(entries, PairInputs on the device) a forward: one pair each, or
         with packing up to `self.pack` same-bucket pairs packed (a bucket's
         ragged tail as a smaller batch). entries: (index, item, slot in the
         batch or None)."""
         if self.pack == 1:
-            for idx in range(n):
-                item = self.dataset[idx]
+            for idx, item in enumerate(items):
                 yield [(idx, item, None)], dict_to_pair(item, self.device)
             return
         pending: Dict[int, list] = {}
@@ -250,8 +263,7 @@ class Tester:
             return ([(idx, item, i) for i, (idx, item) in enumerate(group)],
                     to_device(batch, self.device))
 
-        for idx in range(n):
-            item = self.dataset[idx]
+        for idx, item in enumerate(items):
             bucket = int(item["src_points"].shape[0])
             pending.setdefault(bucket, []).append((idx, item))
             if len(pending[bucket]) == self.pack:
@@ -267,9 +279,6 @@ class Tester:
         next forward's host prep and forward overlap it. The queue holds at
         most two forwards' outputs."""
         n = len(self.dataset)
-        if int(self.cfg.num_workers) > 1 and n > 1:
-            warnings.warn(f"num_workers={self.cfg.num_workers}: the worker pool is a later slice "
-                          "of the port; test pairs are prepared in this process")
         t0 = time.perf_counter()
         jobs: queue.Queue = queue.Queue(maxsize=2)
         errors: list = []
@@ -288,10 +297,11 @@ class Tester:
                 except Exception as e:  # re-raised on the main thread
                     errors.append(e)
 
+        pool, items = self._items(n)
         thread = threading.Thread(target=worker, name="roitr-tester-dump", daemon=True)
         thread.start()
         try:
-            for entries, pair in self._groups(n):
+            for entries, pair in self._groups(items):
                 if errors:
                     break
                 out = self._forward(pair)
@@ -300,6 +310,8 @@ class Tester:
             # the worker writes every dump queued before the sentinel, then ends
             jobs.put(None)
             thread.join()
+            if pool is not None:
+                pool.close()
         if errors:
             raise errors[0]
         if n:

@@ -9,10 +9,17 @@ as proj_vp(sum_m A e), and the (N, N, d) embedding is read by one kernel
 per layer (kernels/rpe_attention_kernel.py), and by another in the
 backward. Softmaxes are mask-safe: a row with no valid key gives zeros.
 Module attribute paths follow the reference state_dict layout.
+
+`dtype` is the compute dtype, as flax's `dtype` in the JAX package: every
+Linear and LayerNorm computes in it from fp32 parameters
+(models/layers.py). Under bf16 compute the RPE attention kernels still
+take fp32 q, k, v and q W_p, and the positional states leave the attention
+in fp32, where the JAX package's mixed bf16 x fp32 products promote.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -27,12 +34,14 @@ from roitr_torch.kernels.rpe_attention_kernel import (
     supported_width,
 )
 from roitr_torch.models.embeddings import PPFEmbedding
+from roitr_torch.models.layers import LayerNorm, Linear
 
 
 def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor], dim: int = -1):
-    """softmax along `dim`; `mask` True = keep. All-masked rows -> zeros."""
+    """softmax along `dim` in the scores' dtype; `mask` True = keep.
+    All-masked rows -> zeros."""
     if mask is not None:
-        scores = torch.where(mask, scores, torch.tensor(-float("inf"), device=scores.device))
+        scores = torch.where(mask, scores, -math.inf)
     m = torch.amax(scores, dim=dim, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(scores - m)
@@ -42,26 +51,29 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor], dim: int 
     return e / torch.where(s == 0.0, torch.ones_like(s), s)
 
 
-def _layer_norm(d: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d, eps=1e-5)
+@functools.lru_cache(maxsize=None)
+def _scale(c: int, dtype) -> float:
+    """The scores' divisor sqrt(c) as the JAX package takes it: rounded to
+    the compute dtype."""
+    return torch.tensor(math.sqrt(c), dtype=dtype).item()
 
 
 class AttentionOutput(nn.Module):
     """Feed-forward block: expand 2x, relu, squeeze, residual LayerNorm
     (reference attention.py:203-218)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dtype=torch.float32):
         super().__init__()
-        self.expand = nn.Linear(d_model, 2 * d_model)
-        self.squeeze = nn.Linear(2 * d_model, d_model)
-        self.norm = _layer_norm(d_model)
+        self.expand = Linear(d_model, 2 * d_model, dtype)
+        self.squeeze = Linear(2 * d_model, d_model, dtype)
+        self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x + self.squeeze(F.relu(self.expand(x))))
 
 
-def _projections(d_model: int, names) -> nn.ModuleDict:
-    return nn.ModuleDict({name: nn.Linear(d_model, d_model) for name in names})
+def _projections(d_model: int, names, dtype) -> nn.ModuleDict:
+    return nn.ModuleDict({name: Linear(d_model, d_model, dtype) for name in names})
 
 
 class LocalPPFAttention(nn.Module):
@@ -71,13 +83,14 @@ class LocalPPFAttention(nn.Module):
     scores = (q.k + q.p)/sqrt(c), out = A @ (v + vp), then linear +
     LayerNorm(residual at the center point)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
-        self.attention = _projections(d_model, ("proj_q", "proj_k", "proj_v", "proj_p", "proj_vp"))
-        self.linear = nn.Linear(d_model, d_model)
-        self.norm = _layer_norm(d_model)
+        self.attention = _projections(d_model, ("proj_q", "proj_k", "proj_v", "proj_p", "proj_vp"),
+                                      dtype)
+        self.linear = Linear(d_model, d_model, dtype)
+        self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, feats, pos_embed, node_idx, group_idx, neighbor_mask=None):
         """feats (N, d), pos_embed (M, K, d), node_idx (M,) or None (centers
@@ -94,7 +107,7 @@ class LocalPPFAttention(nn.Module):
         vp = att["proj_vp"](pos_embed)
         m, kk = group_idx.shape
         prod = (q[:, None, :] * (k + p)).reshape(m, kk, h, c)
-        scores = torch.sum(prod, dim=-1) / math.sqrt(c)  # (M, K, H)
+        scores = torch.sum(prod, dim=-1) / _scale(c, prod.dtype)  # (M, K, H)
         attn = masked_softmax(scores, None if neighbor_mask is None else neighbor_mask[:, :, None],
                               dim=1)
         w = torch.repeat_interleave(attn, c, dim=-1)  # heads back to channels
@@ -107,12 +120,13 @@ class LocalPPFTransformer(nn.Module):
     """in_proj -> PPF embed -> local attention -> out_proj
     (reference ppftransformer.py:202-253)."""
 
-    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_heads: int):
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_heads: int,
+                 dtype=torch.float32):
         super().__init__()
-        self.embedding = PPFEmbedding(hidden_dim)
-        self.in_proj = nn.Linear(input_dim, hidden_dim)
-        self.transformer = LocalPPFAttention(hidden_dim, num_heads)
-        self.out_proj = nn.Linear(hidden_dim, output_dim)
+        self.embedding = PPFEmbedding(hidden_dim, dtype)
+        self.in_proj = Linear(input_dim, hidden_dim, dtype)
+        self.transformer = LocalPPFAttention(hidden_dim, num_heads, dtype)
+        self.out_proj = Linear(hidden_dim, output_dim, dtype)
 
     def forward(self, feats, node_idx, group_idx, ppf, neighbor_mask=None):
         pos = self.embedding(ppf)
@@ -131,27 +145,29 @@ class GlobalRPESelfAttention(nn.Module):
     supported_width), run the plain version, through autograd, as the JAX
     package's XLA path does."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
-        self.proj_q = nn.Linear(d_model, d_model)
-        self.proj_k = nn.Linear(d_model, d_model)
-        self.proj_v = nn.Linear(d_model, d_model)
+        self.proj_q = Linear(d_model, d_model, dtype)
+        self.proj_k = Linear(d_model, d_model, dtype)
+        self.proj_v = Linear(d_model, d_model, dtype)
         self.proj_p = nn.Linear(d_model, d_model)
         self.proj_vp = nn.Linear(d_model, d_model)
 
     def forward(self, x, embed, key_mask=None):
         """x (N, d), embed (N, N, d) (fp32 or bf16), key_mask (N,) ->
         hidden (N, d), pos_states (N, d); or all with a leading pair axis
-        (B, ...), one kernel launch for the B pairs."""
+        (B, ...), one kernel launch for the B pairs. hidden is in x's dtype,
+        pos_states in fp32 (the JAX package's bf16 x fp32 promotion)."""
         n, d = x.shape[-2:]
         lead = x.shape[:-2]
         h = self.num_heads
         c = d // h
-        q2 = self.proj_q(x)
-        k2 = self.proj_k(x)
-        v2 = self.proj_v(x)
+        # the kernels take fp32 q, k, v (cast from the compute dtype)
+        q2 = self.proj_q(x).float()
+        k2 = self.proj_k(x).float()
+        v2 = self.proj_v(x).float()
         wp_h = self.proj_p.weight.t().reshape(d, h, c)  # (D_in, H, c)
         qwp = torch.einsum("...nhc,dhc->...nhd", q2.reshape(*lead, n, h, c), wp_h).contiguous()
         fmask = (torch.ones((*lead, n), dtype=torch.float32, device=x.device)
@@ -161,21 +177,22 @@ class GlobalRPESelfAttention(nn.Module):
         hidden, ae = attend(q2.contiguous(), k2.contiguous(), v2.contiguous(), qwp,
                             embed.contiguous(), fmask.contiguous())
         wvp_h = self.proj_vp.weight.t().reshape(d, h, c)
+        ae = ae.to(x.dtype).float()  # rounded to the compute dtype, as JAX's
         pos = torch.einsum("...nhd,dhc->...nhc", ae, wvp_h) + self.proj_vp.bias.reshape(h, c)
-        return hidden, pos.reshape(*lead, n, d)
+        return hidden.to(x.dtype), pos.reshape(*lead, n, d)
 
 
 class RPEAttentionLayer(nn.Module):
     """attention -> linear -> LayerNorm(residual); positional states:
     pos_linear -> LayerNorm (reference geoattention.py:196-232)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
-        self.attention = GlobalRPESelfAttention(d_model, num_heads)
-        self.linear = nn.Linear(d_model, d_model)
-        self.norm = _layer_norm(d_model)
-        self.pos_linear = nn.Linear(d_model, d_model)
-        self.pos_norm = _layer_norm(d_model)
+        self.attention = GlobalRPESelfAttention(d_model, num_heads, dtype)
+        self.linear = Linear(d_model, d_model, dtype)
+        self.norm = LayerNorm(d_model, dtype)
+        self.pos_linear = Linear(d_model, d_model, dtype)
+        self.pos_norm = LayerNorm(d_model, dtype)
 
     def forward(self, x, embed, key_mask=None):
         hidden, pos = self.attention(x, embed, key_mask)
@@ -187,11 +204,11 @@ class RPESelfLayer(nn.Module):
     """RPETransformerLayer (geoattention.py:235-261): RPE attention, then the
     feed-forward block on both the feature and the positional stream."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
-        self.attention = RPEAttentionLayer(d_model, num_heads)
-        self.output = AttentionOutput(d_model)
-        self.pos_proj = AttentionOutput(d_model)
+        self.attention = RPEAttentionLayer(d_model, num_heads, dtype)
+        self.output = AttentionOutput(d_model, dtype)
+        self.pos_proj = AttentionOutput(d_model, dtype)
 
     def forward(self, x, embed, key_mask=None):
         out, pos = self.attention(x, embed, key_mask)
@@ -203,12 +220,12 @@ class CrossAttention(nn.Module):
     positional states (input_q + pos_q, input_k + pos_k), then linear +
     LayerNorm(residual) (reference geoattention.py:10-66)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.attention = _projections(d_model, ("proj_q", "proj_k", "proj_v"))
-        self.linear = nn.Linear(d_model, d_model)
-        self.norm = _layer_norm(d_model)
+        self.attention = _projections(d_model, ("proj_q", "proj_k", "proj_v"), dtype)
+        self.linear = Linear(d_model, d_model, dtype)
+        self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, x, mem, pos_q, pos_k, key_mask=None):
         """x (N, d), mem (M, d), key_mask (M,); or with a leading pair axis."""
@@ -223,7 +240,7 @@ class CrossAttention(nn.Module):
         q = att["proj_q"](in_q).reshape(*lead, n, h, c)
         k = att["proj_k"](in_k).reshape(*lead, m, h, c)
         v = att["proj_v"](mem).reshape(*lead, m, h, c)
-        scores = torch.einsum("...nhc,...mhc->...hnm", q, k) / math.sqrt(c)
+        scores = torch.einsum("...nhc,...mhc->...hnm", q, k) / _scale(c, q.dtype)
         attn = masked_softmax(scores,
                               None if key_mask is None else key_mask[..., None, None, :])
         hidden = torch.einsum("...hnm,...mhc->...nhc", attn, v).reshape(*lead, n, d)
@@ -233,10 +250,10 @@ class CrossAttention(nn.Module):
 class CrossAttentionLayer(nn.Module):
     """Cross attention + feed-forward block (geoattention.py:264-292)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
         super().__init__()
-        self.attention = CrossAttention(d_model, num_heads)
-        self.output = AttentionOutput(d_model)
+        self.attention = CrossAttention(d_model, num_heads, dtype)
+        self.output = AttentionOutput(d_model, dtype)
 
     def forward(self, x, mem, pos_q, pos_k, key_mask=None):
         return self.output(self.attention(x, mem, pos_q, pos_k, key_mask))

@@ -16,6 +16,14 @@ is B aligned per-pair segments concatenated flat, and the pyramid's
 indices are offset per segment, so the point levels run unchanged on the
 flat arrays; the global transformer runs on free (B, m4, ...) views. A
 packed pair needs its pyramids: the searches here are per cloud.
+
+`dtype` is the compute dtype of every layer (models/layers.py); points,
+normals, PPFs and the pooled mean's sum stay fp32, as in the JAX package,
+and where it adds a bf16 tensor to an fp32 one (the decoder's
+interpolation and residuals) the sum is fp32 here too. `remat` recomputes
+each local PPF transformer in the backward instead of keeping its
+activations (torch.utils.checkpoint, JAX's nn.remat): the same modules
+JAX wraps, and nothing else, so no search runs twice.
 """
 
 from __future__ import annotations
@@ -25,8 +33,10 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from roitr_torch.models.attention import LocalPPFTransformer
+from roitr_torch.models.layers import LayerNorm, Linear
 from roitr_torch.models.transformer import GeometricTransformer
 from roitr_torch.ops.fps import furthest_point_sampling, num_valid_samples
 from roitr_torch.ops.geometry import calc_ppf, index_valid, prefix_mask
@@ -66,6 +76,14 @@ def _device_fps_pyramids(src_points, src_count, tgt_points, tgt_count, strides):
     return fps
 
 
+def _local(transformer: LocalPPFTransformer, remat: bool, *args):
+    """A local PPF transformer's call, recomputed in the backward when
+    `remat` (and a graph is being built)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(transformer, *args, use_reentrant=False)
+    return transformer(*args)
+
+
 def _is_packed(count) -> bool:
     """Packed-batch mode: count is a (B,) vector (data/packing.py)."""
     return count.ndim == 1
@@ -89,11 +107,12 @@ class TransitionDown(nn.Module):
     (reference model.py:47-80)."""
 
     def __init__(self, in_dim: int, out_dim: int, hidden_dim: int, num_heads: int,
-                 stride: int, nsample: int):
+                 stride: int, nsample: int, dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.stride = stride
         self.nsample = nsample
-        self.transformer = LocalPPFTransformer(in_dim, hidden_dim, out_dim, num_heads)
+        self.remat = remat
+        self.transformer = LocalPPFTransformer(in_dim, hidden_dim, out_dim, num_heads, dtype)
 
     def forward(self, points, normals, feats, count, fps_idx=None, cross_idx=None):
         n = points.shape[0]
@@ -119,7 +138,7 @@ class TransitionDown(nn.Module):
                                       exclude_self=True)
         neighbor_mask = index_valid(group_idx, count, n)
         ppf = calc_ppf(new_points, new_normals, points[group_idx], normals[group_idx])
-        x = self.transformer(feats, idx, group_idx, ppf, neighbor_mask)
+        x = _local(self.transformer, self.remat, feats, idx, group_idx, ppf, neighbor_mask)
         return new_points, new_normals, x, new_count, idx
 
 
@@ -127,22 +146,25 @@ class PointTransformerLayer(nn.Module):
     """Holds a block's LocalPPFTransformer under the reference's
     `transformer.transformer` keys (reference model.py RIPointTransformerLayer)."""
 
-    def __init__(self, dim: int, hidden_dim: int, num_heads: int):
+    def __init__(self, dim: int, hidden_dim: int, num_heads: int, dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
-        self.transformer = LocalPPFTransformer(dim, hidden_dim, dim, num_heads)
+        self.remat = remat
+        self.transformer = LocalPPFTransformer(dim, hidden_dim, dim, num_heads, dtype)
 
     def forward(self, feats, group_idx, ppf, neighbor_mask):
-        return self.transformer(feats, None, group_idx, ppf, neighbor_mask)
+        return _local(self.transformer, self.remat, feats, None, group_idx, ppf, neighbor_mask)
 
 
 class PointBlock(nn.Module):
     """Local PPF attention + LayerNorm + residual + ReLU over a fixed level
     (reference model.py:120-142)."""
 
-    def __init__(self, dim: int, hidden_dim: int, num_heads: int):
+    def __init__(self, dim: int, hidden_dim: int, num_heads: int, dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
-        self.transformer = PointTransformerLayer(dim, hidden_dim, num_heads)
-        self.bn2 = nn.LayerNorm(dim, eps=1e-5)
+        self.transformer = PointTransformerLayer(dim, hidden_dim, num_heads, dtype, remat)
+        self.bn2 = LayerNorm(dim, dtype)
 
     def forward(self, feats, group_idx, ppf, neighbor_mask):
         x = self.bn2(self.transformer(feats, group_idx, ppf, neighbor_mask))
@@ -153,23 +175,24 @@ class TransitionUpHead(nn.Module):
     """Coarsest-level decoder head: concat of the mean-pooled global feature
     (reference model.py:99-112, is_head branch)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
-        self.linear1 = nn.Sequential(nn.Linear(2 * dim, dim), nn.LayerNorm(dim, eps=1e-5),
+        self.linear1 = nn.Sequential(Linear(2 * dim, dim, dtype), LayerNorm(dim, dtype),
                                      nn.ReLU())
-        self.linear2 = nn.Sequential(nn.Linear(dim, dim), nn.ReLU())
+        self.linear2 = nn.Sequential(Linear(dim, dim, dtype), nn.ReLU())
 
     def forward(self, feats, count):
         mask = prefix_mask(feats.shape[0], count, device=feats.device)[:, None]
-        masked = torch.where(mask, feats, torch.zeros_like(feats))
+        # the mean in fp32, cast back to the features' dtype
+        masked = torch.where(mask, feats, torch.zeros_like(feats)).float()
         denom = torch.clamp(count, min=1).to(torch.float32)
         if _is_packed(count):  # per-pair pooling over the aligned segments
             b = count.shape[0]
             seg = feats.shape[0] // b
-            pooled = masked.reshape(b, seg, -1).sum(dim=1) / denom[:, None]
+            pooled = (masked.reshape(b, seg, -1).sum(dim=1) / denom[:, None]).to(feats.dtype)
             g = torch.repeat_interleave(self.linear2(pooled), seg, dim=0)
         else:
-            pooled = masked.sum(dim=0, keepdim=True) / denom
+            pooled = (masked.sum(dim=0, keepdim=True) / denom).to(feats.dtype)
             g = self.linear2(pooled).expand(feats.shape[0], -1)
         return self.linear1(torch.cat([feats, g], dim=-1))
 
@@ -178,12 +201,12 @@ class TransitionUp(nn.Module):
     """Decoder upsample: lateral projection + 3-NN inverse-distance
     interpolation of the coarser level (reference model.py:113-117)."""
 
-    def __init__(self, coarse_dim: int, out_dim: int):
+    def __init__(self, coarse_dim: int, out_dim: int, dtype=torch.float32):
         super().__init__()
-        self.linear1 = nn.Sequential(nn.Linear(out_dim, out_dim), nn.LayerNorm(out_dim, eps=1e-5),
+        self.linear1 = nn.Sequential(Linear(out_dim, out_dim, dtype), LayerNorm(out_dim, dtype),
                                      nn.ReLU())
-        self.linear2 = nn.Sequential(nn.Linear(coarse_dim, out_dim),
-                                     nn.LayerNorm(out_dim, eps=1e-5), nn.ReLU())
+        self.linear2 = nn.Sequential(Linear(coarse_dim, out_dim, dtype),
+                                     LayerNorm(out_dim, dtype), nn.ReLU())
 
     def forward(self, points, feats, coarse_points, coarse_feats, coarse_count, up_idx=None,
                 up_w=None):
@@ -197,7 +220,8 @@ class RIPointTransformer(nn.Module):
 
     def __init__(self, transformer_blocks: Sequence[str], factor: int = 1, num_heads: int = 4,
                  enc_blocks: Sequence[int] = (2, 3, 3, 3), strides: Sequence[int] = (1, 4, 4, 4),
-                 nsample: Sequence[int] = (8, 16, 16, 16), geo_embedding_storage: str = "bf16"):
+                 nsample: Sequence[int] = (8, 16, 16, 16), geo_embedding_storage: str = "bf16",
+                 dtype=torch.float32, remat_local: bool = False):
         super().__init__()
         f = factor
         planes = [64 * f, 128 * f, 256 * f, 256 * f]
@@ -207,19 +231,23 @@ class RIPointTransformer(nn.Module):
         for lvl in range(4):
             p = planes[lvl]
             hid = min(p, 256 * f)
-            stage = [TransitionDown(in_dim, p, hid, num_heads, strides[lvl], nsample[lvl])]
-            stage += [PointBlock(p, hid, num_heads) for _ in range(1, enc_blocks[lvl])]
+            stage = [TransitionDown(in_dim, p, hid, num_heads, strides[lvl], nsample[lvl], dtype,
+                                    remat_local)]
+            stage += [PointBlock(p, hid, num_heads, dtype, remat_local)
+                      for _ in range(1, enc_blocks[lvl])]
             setattr(self, f"enc{lvl + 1}", nn.ModuleList(stage))
             in_dim = p
         self.global_transformer = GeometricTransformer(
             planes[3], planes[3], planes[3], num_heads, transformer_blocks, sigma_d=0.2,
-            sigma_a=15.0, angle_k=3, embedding_storage=geo_embedding_storage)
-        self.dec4 = nn.ModuleList([TransitionUpHead(planes[3]),
-                                   PointBlock(planes[3], min(planes[3], 256 * f), num_heads)])
+            sigma_a=15.0, angle_k=3, embedding_storage=geo_embedding_storage, dtype=dtype)
+        self.dec4 = nn.ModuleList([
+            TransitionUpHead(planes[3], dtype),
+            PointBlock(planes[3], min(planes[3], 256 * f), num_heads, dtype, remat_local)])
         for lvl in (3, 2, 1):
             p = planes[lvl - 1]
             setattr(self, f"dec{lvl}", nn.ModuleList([
-                TransitionUp(planes[lvl], p), PointBlock(p, min(p, 256 * f), num_heads)]))
+                TransitionUp(planes[lvl], p, dtype),
+                PointBlock(p, min(p, 256 * f), num_heads, dtype, remat_local)]))
 
     def encode(self, points, normals, feats, count, fps_idx: List, pyramid=None) -> List[Level]:
         """`fps_idx`: per level, device FPS indices or None; a `pyramid`

@@ -17,6 +17,7 @@ from roitr_torch.kernels.geo_embedding_kernel import (
     sinusoidal_basis,
     supported_k,
 )
+from roitr_torch.models.layers import Linear
 from roitr_torch.ops.geometry import masked_pairwise_sq_dist, pairwise_sq_dist
 from roitr_torch.ops.topk import topk
 
@@ -33,11 +34,12 @@ def sinusoidal_embedding(indices: torch.Tensor, d_model: int) -> torch.Tensor:
 
 class PPFEmbedding(nn.Module):
     """Local-mode PPF embedding: one linear lift of the raw 4-d PPF
-    (reference PPFStructualEmbedding, :65-91)."""
+    (reference PPFStructualEmbedding, :65-91), computing in `dtype` (the
+    JAX package's `embedding_proj`); the PPF itself stays fp32."""
 
-    def __init__(self, hidden_dim: int):
+    def __init__(self, hidden_dim: int, dtype=torch.float32):
         super().__init__()
-        self.proj = nn.Linear(4, hidden_dim)
+        self.proj = Linear(4, hidden_dim, dtype)
 
     def forward(self, ppf: torch.Tensor) -> torch.Tensor:
         return self.proj(ppf)

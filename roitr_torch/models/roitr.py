@@ -93,6 +93,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 class LearnableLogOptimalTransport(nn.Module):
     """Holds the learnable dustbin score (reference modules.py:10-72)."""
 
@@ -116,13 +119,9 @@ class RoITr(nn.Module):
             raise NotImplementedError(
                 f"sinkhorn_backend {cfg.sinkhorn_backend!r}: the port runs the Sinkhorn kernel "
                 "on the card and its plain loop on the CPU")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r}: the port computes in float32 (bf16 "
-                "compute is a later slice)")
-        if cfg.remat_local:
-            raise NotImplementedError("remat_local: recomputing the local attention in the "
-                                      "backward is a later slice of the port")
+        if cfg.compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}, got "
+                             f"{cfg.compute_dtype!r}")
         device = resolve_device(device)
         self.cfg = cfg
         f = cfg.channel_factor
@@ -130,7 +129,8 @@ class RoITr(nn.Module):
             transformer_blocks=tuple(cfg.transformer_architecture), factor=f,
             num_heads=cfg.num_heads, enc_blocks=tuple(cfg.enc_blocks),
             strides=tuple(cfg.enc_strides), nsample=tuple(cfg.enc_nsample),
-            geo_embedding_storage=cfg.geo_embedding_storage)
+            geo_embedding_storage=cfg.geo_embedding_storage,
+            dtype=_COMPUTE_DTYPES[cfg.compute_dtype], remat_local=cfg.remat_local)
         self.coarse_proj = nn.Linear(256 * f, 256 * f)
         self.fine_proj = nn.Linear(64 * f, 256 * f)
         self.optimal_transport = LearnableLogOptimalTransport()
@@ -161,7 +161,9 @@ class RoITr(nn.Module):
 
     def _backbone_outputs(self, pair: PairInputs) -> Dict[str, torch.Tensor]:
         """Backbone and descriptor projections (reference RIGA_v2.py:58-80);
-        flat (B * N, ...) rows for a packed pair."""
+        flat (B * N, ...) rows for a packed pair. The projections are fp32
+        whatever the compute dtype (JAX's flax Dense without a dtype
+        promotes bf16 x fp32 to fp32)."""
         (src_nodes, src_node_feats, src_points, src_point_feats, src_node_count, tgt_nodes,
          tgt_node_feats, tgt_points, tgt_point_feats, tgt_node_count) = self.backbone(
             pair.src_raw_points, pair.src_normals, pair.src_feats, pair.src_count,
@@ -170,10 +172,12 @@ class RoITr(nn.Module):
         return {
             "src_points": src_points, "tgt_points": tgt_points,
             "src_nodes": src_nodes, "tgt_nodes": tgt_nodes,
-            "src_point_feats": self.fine_proj(src_point_feats),
-            "tgt_point_feats": self.fine_proj(tgt_point_feats),
-            "src_node_feats": F.normalize(self.coarse_proj(src_node_feats), dim=-1, eps=1e-12),
-            "tgt_node_feats": F.normalize(self.coarse_proj(tgt_node_feats), dim=-1, eps=1e-12),
+            "src_point_feats": self.fine_proj(src_point_feats.float()),
+            "tgt_point_feats": self.fine_proj(tgt_point_feats.float()),
+            "src_node_feats": F.normalize(self.coarse_proj(src_node_feats.float()), dim=-1,
+                                          eps=1e-12),
+            "tgt_node_feats": F.normalize(self.coarse_proj(tgt_node_feats.float()), dim=-1,
+                                          eps=1e-12),
             "src_count": pair.src_count, "tgt_count": pair.tgt_count,
             "src_node_count": src_node_count, "tgt_node_count": tgt_node_count,
         }

@@ -7,8 +7,10 @@ staircase ExpLR and `iter_size` gradient averaging, on one card. A step
 takes one pair, a packed batch of B pairs (data/packing.py: one forward,
 outputs with a leading B) or a list of B single pairs (the loader's
 `batch_size > 1` without packing); its loss and metrics are the means of
-the pairs' (JAX's vmap over pairs, then `jnp.mean`). Data parallelism is a
-later slice of the port.
+the pairs' (JAX's vmap over pairs, then `jnp.mean`). Under bf16 compute
+(`compute_dtype`) the losses and metrics are fp32, the optimizer updates
+fp32 parameters and the NaN guard reads every fp32 gradient; there is no
+loss scaling, as in JAX. Data parallelism is a later slice of the port.
 """
 
 from __future__ import annotations

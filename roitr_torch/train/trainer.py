@@ -6,7 +6,8 @@ epoch and one per best metric under snapshot/<exp_dir>/checkpoints, and
 resume from cfg.pretrain. A step takes `cfg.batch_size` same-bucket pairs
 (a list of single pairs, or with `cfg.packed_batch` one packed pair, which
 needs host pyramids) on one card, or on the CPU when asked, with the
-kernels' plain versions.
+kernels' plain versions. Pairs are prepared in min(cfg.num_workers, cores)
+worker subprocesses (data/worker_pool.py; 0: in the loader's thread).
 
     trainer = Trainer(cfg)                  # device="cuda"; datasets from cfg
     best = trainer.train()
@@ -106,7 +107,8 @@ class Trainer:
         self.model.train()
         batches = iterate_batches(self.train_dataset, cfg.batch_size, shuffle=True,
                                   seed=cfg.seed + epoch, max_items=cfg.training_max_iter,
-                                  pack=self._pack(), device=self.device)
+                                  pack=self._pack(), device=self.device,
+                                  num_workers=self._workers())
         self.step_times = []
         for it, batch in enumerate(batches):
             timer.tic()
@@ -128,12 +130,16 @@ class Trainer:
     def _pack(self) -> int:
         return self.cfg.batch_size if self.cfg.packed_batch else 0
 
+    def _workers(self) -> int:
+        # more workers than cores is IPC overhead only (JAX's trainer)
+        return min(int(self.cfg.num_workers), os.cpu_count() or 1)
+
     def eval_epoch(self, epoch: int) -> Dict[str, float]:
         meters = MetricMeters()
         self.model.eval()
         for batch in iterate_batches(self.val_dataset, self.cfg.batch_size,
                                      max_items=self.cfg.val_max_iter, pack=self._pack(),
-                                     device=self.device):
+                                     device=self.device, num_workers=self._workers()):
             meters.update(eval_step(self.model, batch), n=batch_pairs(batch))
         avgs = meters.averages()
         self.logger.write(f"epoch {epoch} val: {meters.summary()}\n")

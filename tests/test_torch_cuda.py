@@ -1006,3 +1006,100 @@ def test_packed_train_step_on_card_matches_cpu(dev, ppp, iters):
     fg = torch.cat([v.flatten() for v in gg.values()])
     fc = torch.cat([v.flatten() for v in gc.values()])
     assert float(fg @ fc / (fg.norm() * fc.norm())) >= 0.9999
+
+
+def _cosine(ga, gb):
+    fa = torch.cat([v.flatten() for v in ga.values()])
+    fb = torch.cat([v.flatten() for v in gb.values()])
+    return float(fa @ fb / (fa.norm() * fb.norm()))
+
+
+def test_bf16_train_step_on_card_against_fp32(dev):
+    """A train step under bf16 compute on the card launches what the fp32
+    step launches (the kernels take fp32 q, k, v either way); its outputs
+    and gradients are fp32 and finite, its gradient's cosine with the fp32
+    step's >= 0.98 (the JAX package's bf16 bound on descriptors), and the
+    card's bf16 gradient against the CPU's bf16 gradient >= 0.99."""
+    from torch_parity import pair_arrays, torch_pair
+    from roitr_torch.models.roitr import RoITr
+
+    cfg = _tiny_cfg().replace(num_gt_coarse_corr=32)
+    arr = pair_arrays(3, 512, 480, 400)
+    runs = {}
+    for name, c in (("fp32", cfg), ("bf16", cfg.replace(compute_dtype="bfloat16"))):
+        model = RoITr(c, device=dev, seed=0)
+        kernels.reset_launch_counts()
+        runs[name] = _grad_step(model, torch_pair(arr, dev)) + (dict(kernels.launch_counts),)
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert runs["bf16"][2] == runs["fp32"][2] and all(runs["fp32"][2].values()), runs
+    assert all(torch.isfinite(v).all() for v in runs["bf16"][1].values())
+    assert _cosine(runs["bf16"][1], runs["fp32"][1]) >= 0.98
+    _, cpu = _grad_step(RoITr(cfg.replace(compute_dtype="bfloat16"), device="cpu", seed=0),
+                        torch_pair(arr))
+    assert _cosine(runs["bf16"][1], cpu) >= 0.99
+
+
+def test_remat_train_step_on_card(dev):
+    """remat_local on the card: the same launches as without (the local
+    attention has no kernel of its own), the same losses, and gradients
+    within 1e-2 of each parameter's norm (floored at 1e-3 of the largest)
+    and cosine >= 0.9999: the gather backward's atomics may order its sums
+    differently from run to run."""
+    from torch_parity import pair_arrays, torch_pair
+    from roitr_torch.models.roitr import RoITr
+
+    cfg = _tiny_cfg().replace(num_gt_coarse_corr=32)
+    pair = torch_pair(pair_arrays(3, 512, 480, 400), dev)
+    runs = {}
+    for remat in (False, True):
+        kernels.reset_launch_counts()
+        runs[remat] = _grad_step(RoITr(cfg.replace(remat_local=remat), device=dev, seed=0),
+                                 pair) + (dict(kernels.launch_counts),)
+    (l0, g0, n0), (l1, g1, n1) = runs[False], runs[True]
+    assert n0 == n1
+    for k in l0:
+        assert abs(l1[k] - l0[k]) <= 1e-5 * max(abs(l0[k]), 1.0), k
+    floor = 1e-3 * max(float(v.norm()) for v in g0.values())
+    for k in g0:
+        assert float((g1[k] - g0[k]).norm()) <= 1e-2 * max(float(g0[k].norm()), floor), k
+    assert _cosine(g1, g0) >= 0.9999
+
+
+def test_tester_with_workers_on_card(dev, tmp_path, monkeypatch):
+    """The Tester on the card with its pairs prepared by two worker
+    subprocesses (host pyramids): its dumps equal those of the in-process
+    run byte for byte (that the workers see no card: tests/test_torch_workers.py)."""
+    import os
+    import pickle
+
+    from roitr_torch.config import Config
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.eval.tester import Tester as PortTester
+    from roitr_torch.models.roitr import RoITr
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.RandomState(8)
+    infos = {"rot": [], "trans": [], "overlap": [], "src": [], "tgt": []}
+    os.makedirs("indoor/test/s")
+    for i in range(3):
+        arr = make_pair_arrays(rng, 4096, 3900 - 100 * i, 3600)
+        for j, pts in ((2 * i, arr["src_points"][:3900 - 100 * i]),
+                       (2 * i + 1, arr["tgt_points"][:3600])):
+            torch.save(torch.from_numpy(pts.copy()), f"indoor/test/s/cloud_bin_{j}.pth")
+        infos["src"].append(f"test/s/cloud_bin_{2 * i}.pth")
+        infos["tgt"].append(f"test/s/cloud_bin_{2 * i + 1}.pth")
+        infos["rot"].append(arr["rot"])
+        infos["trans"].append(arr["trans"])
+        infos["overlap"].append(0.5)
+    with open("test.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    cfg = Config(benchmark="3DMatch", mode="test", root="indoor", test_info="test.pkl",
+                 buckets=(4096,), host_pyramid=True)
+    state_dict = RoITr(cfg, device="cpu", seed=0).state_dict()
+    dumps = {}
+    for workers in (2, 0):
+        run = cfg.replace(exp_dir=f"w{workers}", num_workers=workers)
+        PortTester(run, state_dict=state_dict, device=dev).test()
+        dumps[workers] = [open(f"snapshot/w{workers}/3DMatch/{i}.pth", "rb").read()
+                          for i in range(3)]
+    assert dumps[2] == dumps[0]

@@ -223,7 +223,7 @@ def test_trainer_builds_its_datasets_from_the_config(tdmatch_tree, tmp_path, mon
     monkeypatch.chdir(tmp_path)
     kw = dict(SMALL, **tdmatch_tree, num_est_coarse_corr=8, num_gt_coarse_corr=8,
               point_per_patch=8, sinkhorn_iters=5, max_gt_corr_candidates=16, val_max_iter=1,
-              verbose=False)
+              verbose=False, num_workers=0)
     trainer = Trainer(Config(**kw), device="cpu")
     want_val = jax_get_dataset(JaxConfig(**kw), "val")
     assert len(trainer.train_dataset) == len(trainer.val_dataset) == len(want_val)

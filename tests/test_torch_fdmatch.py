@@ -578,7 +578,7 @@ def test_trainer_on_the_fdmatch_config(tree, tmp_path, monkeypatch):
                       normal_knn=9, num_est_coarse_corr=8, num_gt_coarse_corr=8,
                       point_per_patch=8, sinkhorn_iters=5, max_gt_corr_candidates=16,
                       max_epoch=1, training_max_iter=4, val_max_iter=1, verbose=False,
-                      scheduler_gamma=0.5, **ARCH)
+                      scheduler_gamma=0.5, num_workers=0, **ARCH)
     assert (cfg.iter_size, cfg.batch_size, cfg.channel_factor, cfg.dataset) == (
         4, 1, 2, "fdmatch")
     train_set = [get_dataset(cfg, "train")[i % len(COUNTS)] for i in range(4)]

@@ -385,11 +385,31 @@ def test_loader_batches_match_jax(pack):
     pack 2 every leaf of a packed batch, pyramids included, equals the
     port's pack_pairs of its pairs and, for a full batch, JAX's pack_pairs;
     every item of the epoch is seen exactly once."""
+    items = _tag(_items())
+    got = list(iterate_batches(items, 2, shuffle=True, seed=5, pack=pack))
+    _assert_batches_match_jax(got, items, pack)
+
+
+@pytest.mark.parametrize("pack", [0, 2])
+def test_loader_with_workers_matches_in_process_and_jax(pack):
+    """The same epoch with the items prepared by two worker subprocesses
+    (data/worker_pool.py): every batch's leaves, pyramids included, equal
+    the in-process loader's, and the batches hold JAX's pairs in JAX's
+    order, as above."""
+    items = _tag(_items())
+    got = list(iterate_batches(items, 2, shuffle=True, seed=5, pack=pack, num_workers=2))
+    want = list(iterate_batches(items, 2, shuffle=True, seed=5, pack=pack))
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for gp, wp in zip(*((b if isinstance(b, list) else [b]) for b in (g, w))):
+            _assert_leaves_equal(gp, wp, f"batch {i}")
+    _assert_batches_match_jax(got, items, pack)
+
+
+def _assert_batches_match_jax(got, items, pack):
     from roitr_torch.data.loader import dict_to_pair
     from roitr_tpu.data.loader import dict_to_pair as jax_dict_to_pair
 
-    items = _tag(_items())
-    got = list(iterate_batches(items, 2, shuffle=True, seed=5, pack=pack))
     want = list(jax_iterate_batches(items, 2, shuffle=True, seed=5, pack=pack))
     assert len(got) == len(want) == 4  # 256: two full; 128: one full and a tail
     seen = []
@@ -432,7 +452,7 @@ def test_iterate_batches_batch_size_one_is_pair_by_pair():
 TRAINER_CFG = dict(num_est_coarse_corr=8, num_gt_coarse_corr=8, point_per_patch=8,
                    sinkhorn_iters=5, max_gt_corr_candidates=16, buckets=(128,), normal_knn=9,
                    batch_size=2, packed_batch=True, host_pyramid=True, max_epoch=1,
-                   verbose=False, training_max_iter=3, val_max_iter=2)
+                   verbose=False, training_max_iter=3, val_max_iter=2, num_workers=0)
 
 
 class _WithPyramids:

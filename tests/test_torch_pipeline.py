@@ -149,18 +149,32 @@ def test_node_descriptors_rotation_invariant():
 @pytest.mark.parametrize("option", [dict(compute_dtype="bfloat16"), dict(remat_local=True),
                                     dict(packed_batch=True)])
 def test_later_slices_raise(option):
-    """What the port has no path for yet is refused, not followed silently:
-    bf16 compute and rematerialised local attention. Packed batches are
-    ported: the option builds, and a packed pair without its pyramids
-    raises the JAX package's ValueError (the searches are per cloud)."""
+    """The options of later slices build, with the reference state_dict
+    keys, and take their path: bf16 compute puts every Linear and LayerNorm
+    of the backbone and the global transformer in bf16 and leaves the
+    geometric embedding, the RPE attention's factored projections and the
+    descriptor projections in fp32 (tests/test_torch_bf16.py holds it
+    against JAX); remat_local recomputes every local PPF transformer
+    (tests/test_torch_train_model.py); packed batches build. A packed pair
+    without its pyramids raises the JAX package's ValueError (the searches
+    are per cloud)."""
     from roitr_torch.config import Config
+    from roitr_torch.models.backbone import PointTransformerLayer, TransitionDown
+    from roitr_torch.models.layers import LayerNorm, Linear
     from roitr_torch.models.roitr import RoITr
 
-    if "packed_batch" in option:
-        RoITr(Config(benchmark="3DMatch", **option), device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="later slice|not ported"):
-            RoITr(Config(benchmark="3DMatch", **option), device="cpu")
+    model = RoITr(Config(benchmark="3DMatch", **option), device="cpu")
+    assert list(model.state_dict()) == list(
+        RoITr(Config(benchmark="3DMatch"), device="cpu").state_dict())
+    dtypes = {n: m.compute_dtype for n, m in model.named_modules()
+              if isinstance(m, (Linear, LayerNorm))}
+    want = torch.bfloat16 if "compute_dtype" in option else torch.float32
+    assert dtypes and set(dtypes.values()) == {want}
+    assert all(n.startswith("backbone.") and ".embedding.proj_" not in n for n in dtypes)
+    remat = [m.remat for m in model.modules()
+             if isinstance(m, (TransitionDown, PointTransformerLayer))]
+    # four down-samplings, the encoder's 1 + 2 + 2 + 2 blocks and the decoder's 4
+    assert len(remat) == 15 and all(remat) == ("remat_local" in option)
     tcfg, model, _, _ = port_and_params(0)
     pair = torch_pair(pair_arrays(1))
     batched = pair._replace(src_count=torch.tensor([224]), tgt_count=torch.tensor([192]))
@@ -169,14 +183,30 @@ def test_later_slices_raise(option):
 
 
 @pytest.mark.parametrize("option", [dict(knn_method="approx"), dict(sinkhorn_backend="xla"),
-                                    dict(compute_dtype="bfloat16"), dict(remat_local=True)])
+                                    dict(compute_dtype="float16"), dict(remat_local=True)])
 def test_unported_options_raise(option):
-    """Options that would take another path than the slice's kernels are
-    refused when the model is built, not followed silently."""
+    """Options that would take another path than the port's are refused
+    when the model is built, not followed silently: approximate kNN (a TPU
+    operator), the XLA Sinkhorn, and a compute dtype other than float32
+    and bfloat16 (JAX's Config quietly computes those in float32).
+    remat_local, once refused here, is ported: its forward equals the plain
+    model's bit for bit, with a graph (the checkpointed transformers) and
+    without."""
     from roitr_torch.config import Config
     from roitr_torch.models.roitr import RoITr
 
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
+    if option == dict(remat_local=True):
+        _, plain, _, _ = port_and_params(0)
+        _, remat, _, _ = port_and_params(0, **option)
+        pair = torch_pair(pair_arrays(1, 128, 112, 96))
+        with torch.no_grad():
+            want = plain(pair)
+            got_no_graph = remat(pair)
+        got = remat(pair)
+        for key, w in want.items():
+            assert torch.equal(got[key].detach(), w) and torch.equal(got_no_graph[key], w), key
+        return
+    with pytest.raises((NotImplementedError, ValueError), match=next(iter(option))):
         RoITr(Config(benchmark="3DMatch", **option), device="cpu")
 
 

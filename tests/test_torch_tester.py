@@ -428,13 +428,21 @@ def test_tester_checks_its_arguments(tmp_path, monkeypatch):
 
 
 def test_tester_warns_once_about_workers(tmp_path, monkeypatch, recwarn):
+    """num_workers > 1, once warned about and ignored, now prepares the
+    pairs in a pool of worker subprocesses: no warning, and dumps equal to
+    those of the in-process run (num_workers 0) byte for byte."""
     monkeypatch.chdir(tmp_path)
-    cfg = Config(**dict(SMALL, num_workers=4))
-    PortTester(cfg, dataset=SyntheticPairs(2, 128, normal_knn=9), device="cpu",
-           state_dict=port_and_params(0, **SMALL)[1].state_dict()).test()
-    assert sum("num_workers" in str(w.message) for w in recwarn) == 1
-    assert sorted(os.listdir(os.path.join("snapshot", cfg.exp_dir, cfg.benchmark))) == \
-        ["0.pth", "1.pth"]
+    state_dict = port_and_params(0, **SMALL)[1].state_dict()
+    dumps = {}
+    for workers in (2, 0):
+        cfg = Config(**dict(SMALL, num_workers=workers, exp_dir=f"workers{workers}"))
+        PortTester(cfg, dataset=SyntheticPairs(2, 128, normal_knn=9), device="cpu",
+                   state_dict=state_dict).test()
+        out_dir = os.path.join("snapshot", cfg.exp_dir, cfg.benchmark)
+        assert sorted(os.listdir(out_dir)) == ["0.pth", "1.pth"]
+        dumps[workers] = [open(os.path.join(out_dir, f"{i}.pth"), "rb").read() for i in range(2)]
+    assert not [w for w in recwarn if "num_workers" in str(w.message)]
+    assert dumps[2] == dumps[0]
 
 
 def test_get_trainer_dispatches_on_mode(tmp_path, monkeypatch):

@@ -318,7 +318,7 @@ def test_train_step_guard_on_a_non_finite_gradient():
 TRAINER_CFG = dict(num_est_coarse_corr=8, num_gt_coarse_corr=8, point_per_patch=8,
                    sinkhorn_iters=5, max_gt_corr_candidates=16, buckets=(128,), normal_knn=9,
                    batch_size=1, max_epoch=1, verbose=False, training_max_iter=2,
-                   val_max_iter=2)
+                   val_max_iter=2, num_workers=0)
 
 
 def test_update_bests():

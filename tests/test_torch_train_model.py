@@ -1,7 +1,10 @@
 """The port's training forward and gradients against the JAX package on
 the CPU, same weights and seeded pair: RoITr.forward(with_gt=True) in
 eval and train mode key by key, the losses and evaluator of each, and
-every parameter's gradient of overall_loss["loss"].
+every parameter's gradient of overall_loss["loss"]; and with remat_local
+(the local attention recomputed in the backward), the same state_dict
+keys and gradients within 1e-6 of the port's without it and within the
+gradient tolerance below of JAX's.
 
 Tolerances: indices exactly; fp32 values within rtol 1e-4 / atol 1e-5;
 gradients within rtol 1e-3 / atol 1e-5 per parameter and cosine >= 0.9999
@@ -200,3 +203,22 @@ def test_gradients_match_jax(train_runs):
     w = np.concatenate([want[k].numpy().ravel() for k in sorted(want)]).astype(np.float64)
     assert np.dot(g, w) / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.9999
     assert np.linalg.norm(w) > 0
+
+
+def test_remat_local_gradients_match(train_runs):
+    """remat_local recomputes each local PPF transformer in the backward
+    (torch.utils.checkpoint, JAX's nn.remat): the state_dict keys are the
+    same, the gradients within 1e-6 of the port's without it (the same ops
+    run again) and within this file's tolerance of JAX's."""
+    tcfg, model, _, _ = port_and_params(0, remat_local=True, **TRAIN_KW)
+    assert list(model.state_dict()) == list(port_and_params(0, **TRAIN_KW)[1].state_dict())
+    tpair = torch_pair(pair_arrays(5, **BUCKET))
+    out = model(tpair, train=True, with_gt=True, generator=torch.Generator().manual_seed(0))
+    overall_loss(tcfg, out, tpair.rot, tpair.trans)["loss"].backward()
+    got = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+           for k, p in model.named_parameters()}
+    plain, want = train_runs["grads"], train_runs["jgrads"]
+    assert set(got) == set(plain) == set(want)
+    for k in sorted(want):
+        np.testing.assert_allclose(got[k], plain[k], rtol=0, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(got[k], want[k].numpy(), rtol=1e-3, atol=1e-5, err_msg=k)
