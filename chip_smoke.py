@@ -100,6 +100,24 @@ Phases, each of which exits non-zero on failure:
                exact, dumps equal byte for byte; then a full-width Trainer
                whose pairs the pool prepares (2 train steps, 1 validation
                step, launches exact)
+  17. ddp      data parallelism over processes at full 3DMatch width: with
+               two or more cards NCCL, one rank a card (up to 4); with one,
+               two gloo ranks on it and a one-rank NCCL group. One train step
+               of one 20k-30k-point pair a rank against the one-process step
+               of the same pairs (parameters bit-equal across ranks, max
+               difference and gradient cosine against the one-process step,
+               step ms a rank, the flat gradient's MB and its all-reduce's
+               ms); a Trainer (2 steps, 1 validation step, one checkpoint a
+               name, launches exact); the Tester on 4 pairs, dumps equal to
+               world 1's byte for byte
+  18. registration  the port's registration evaluation on 16 synthetic
+               dumps with known poses (5000 correspondences, 30-60%
+               outliers): registration recall, inlier ratio and feature-match
+               recall with RANSAC on the card and in numpy, equal; transforms
+               within 5e-3; the card's winning hypothesis the CPU's; the
+               card's ms a pair at 50k hypotheses for 5000, 2500, 1000, 500
+               and 250 correspondences, numpy's s a pair at 5000, and the
+               protocol's time on the card for 1623 pairs, extrapolated
 The phases before [workers] prepare pairs in process (num_workers 0).
 It then prints one JSON line with each kernel's numbers, the card's name
 and power limit, and last the result line
@@ -2355,6 +2373,373 @@ def phase_workers(rng, main):
              f"val {best}")
 
 
+def _ddp_ranks():
+    """tests/ddp_ranks.py: the rank of the card's step (`card_step`) and its
+    helpers, shared with tests/test_torch_cuda.py."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import ddp_ranks
+
+    return ddp_ranks
+
+
+def _ddp_trainer(job):
+    """[ddp]'s Trainer on one rank, in the group's shared directory, with
+    its checkpoint writes counted."""
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.train import trainer as trainer_module
+
+    saves, save = [], trainer_module.save_checkpoint
+    trainer_module.save_checkpoint = lambda path, *a: (saves.append(os.path.basename(path)),
+                                                       save(path, *a))
+    os.chdir(job["base"])
+    try:
+        trainer = trainer_module.Trainer(job["train_cfg"], job["train_set"], job["val_set"],
+                                         device="cuda", time_steps=True)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        best = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(launch_counts)
+        ckpts = sorted(os.listdir(trainer.ckpt_dir))
+    finally:
+        trainer_module.save_checkpoint = save
+    return dict(steps=trainer.step, step_ms=[dict(t) for t in trainer.step_times], best=best,
+                wall=wall, launches=launches, saves=saves, ckpts=ckpts,
+                digest=_ddp_ranks().digest(_ddp_ranks().flat_params(trainer.model)))
+
+
+def _ddp_tester(job):
+    from roitr_torch.eval import get_trainer
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+
+    os.chdir(job["base"])
+    tester = get_trainer(job["tester_cfg"])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    tester.test()
+    torch.cuda.synchronize()
+    return dict(wall=time.time() - t0, launches=dict(launch_counts),
+                pairs=len(range(tester.rank, len(tester.dataset), tester.world)))
+
+
+def _ddp_rank(rank, world, job):
+    """One rank of [ddp] (started by roitr_torch.parallel.distributed.spawn,
+    or this process as a one-rank group):
+    the parts of `job` it holds (step, trainer, tester), in that order."""
+    from roitr_torch.parallel.distributed import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_distributed(job["cfg"], "cuda")
+    out = {"device": str(dev)}
+    if "pairs" in job:
+        out["step"] = _ddp_ranks().card_step(rank, world, job["cfg"], job["pairs"],
+                                             job["states"])
+    if "train_set" in job:
+        out["trainer"] = _ddp_trainer(job)
+    if "tester_cfg" in job:
+        out["tester"] = _ddp_tester(job)
+    return out
+
+
+def phase_ddp(rng, main):
+    """Data parallelism (roitr_torch/parallel/distributed.py) at full 3DMatch
+    width. With two or more cards, NCCL and one rank a card (up to 4); with
+    one, two gloo ranks on that card and then a one-rank NCCL group (this
+    process) through the same Trainer. One train step of one 20k-30k-point pair a rank
+    against the one-process step of the same pairs on the card (the same
+    Gumbel noise); a Trainer (configs/train/tdmatch.yaml, 2 steps and a
+    validation step); the Tester (configs/test/tdmatch.yaml, host prep,
+    full dumps) on 4 synthetic pairs, whose dumps must equal world 1's byte
+    for byte. The kernels and the native library are built here first; a
+    rank that fails or outlives the wall limit fails the phase."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from roitr_torch import native
+    from roitr_torch.config import load_config
+    from roitr_torch.data.loader import dict_to_pair
+    from roitr_torch.data.synthetic import SyntheticPairs
+    from roitr_torch.eval import get_trainer
+    from roitr_torch.kernels import build, launch_counts, reset_launch_counts
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.parallel.distributed import spawn
+    from roitr_torch.parallel.train_step import make_optimizer, train_step
+
+    ddp_ranks = _ddp_ranks()
+    t_phase = time.time()
+    build.build()
+    native.get_lib()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        backend, world = "nccl", min(4, cards)
+        devices = [f"cuda:{i}" for i in range(world)]
+        plan = f"{world} ranks over NCCL, one a card"
+    else:
+        backend, world, devices = "gloo", 2, ["cuda:0"] * 2
+        plan = "2 ranks over gloo, both on card 0; then a one-rank NCCL group (Trainer)"
+    print(f"[ddp] {cards} card(s): {plan}", flush=True)
+    cfg = _train_cfg(max_epoch=1, training_max_iter=2 * world, val_max_iter=world,
+                     verbose_freq=1)
+    ds = SyntheticPairs(world, 32768, counts=(20000, 30000), seed=int(rng.randint(1 << 30)))
+    items = [ds[i] for i in range(world)]  # host normals up front
+    sizes = [(int(d["src_count"]), int(d["tgt_count"])) for d in items]
+
+    # the one-process step of the same pairs, recording each pair's generator state
+    model = RoITr(cfg, device="cuda", seed=0)
+    opt = make_optimizer(cfg, model, steps_per_epoch=1)
+    states = []
+    model.register_forward_pre_hook(
+        lambda m, args, kw: states.append(kw["generator"].get_state().numpy().copy()),
+        with_kwargs=True)
+    grads = ddp_ranks.capture_grads(opt)
+    timings = {}
+    ref_metrics = train_step(model, opt, [dict_to_pair(d, "cuda") for d in items],
+                             torch.Generator().manual_seed(0), timings)
+    ref_grad = grads[0]
+    del model, opt
+    torch.cuda.empty_cache()
+    print(f"[ddp] one-process step of {world} pairs {sizes} on the card: "
+          f"{sum(timings.values()):.1f} ms", flush=True)
+
+    sums = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            root, info = _write_tdmatch_split(rng, [(int(a), int(b)) for a, b in
+                                                    rng.randint(20000, 30001, size=(4, 2))], tmp)
+            tcfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                            "test", "tdmatch.yaml"),
+                               root=root, test_info=info, pretrain=os.path.join(tmp, "w.pth"),
+                               knn_method="exact", num_workers=0)
+            torch.save({"model": RoITr(tcfg, device="cpu", seed=0).state_dict()}, tcfg.pretrain)
+            get_trainer(tcfg.replace(exp_dir="ddp_world1")).test()
+            job = dict(cfg=cfg, pairs=items, states=states, base=tmp, train_cfg=cfg,
+                       train_set=(items * 2)[:2 * world], val_set=items,
+                       tester_cfg=tcfg.replace(exp_dir=f"ddp_world{world}"))
+            t0 = time.time()
+            ranks = spawn(_ddp_rank, world, backend, args=(job,), devices=devices, timeout_s=300)
+            group_s = time.time() - t0
+            digests = {}
+            for name in ("ddp_world1", f"ddp_world{world}"):
+                digests[name] = [hashlib.sha256(open(os.path.join(
+                    tmp, "snapshot", name, "3DMatch", f"{i}.pth"), "rb").read()).hexdigest()
+                    for i in range(4)]
+            nccl = None
+            if backend == "gloo":  # this process as a one-rank NCCL group
+                nccl_base = os.path.join(tmp, "nccl")
+                os.makedirs(nccl_base)
+                t0 = time.time()
+                dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                                        world_size=1)
+                try:
+                    nccl = _ddp_rank(0, 1, dict(
+                        cfg=cfg, base=nccl_base,
+                        train_cfg=cfg.replace(training_max_iter=2, val_max_iter=1),
+                        train_set=items[:2], val_set=items[:1]))
+                finally:
+                    dist.destroy_process_group()
+                nccl_s = time.time() - t0
+        finally:
+            os.chdir(cwd)
+
+    # the step: ranks equal, against the one-process step
+    steps = [r["step"] for r in ranks]
+    if len({s["flat_digest"] for s in steps}) != 1 or len({s["grad_digest"] for s in steps}) != 1:
+        fail("[ddp] the ranks' gradients or parameters after the step differ")
+    g, want = steps[0]["grad"].astype(np.float64), ref_grad.astype(np.float64)
+    cos = float(g @ want / (np.linalg.norm(g) * np.linalg.norm(want)))
+    grad_err = float(np.abs(g - want).max() / np.abs(want).max())
+    metric_err = 0.0
+    for r, s in enumerate(steps):
+        metrics, t, launches = s["metrics"], s["timings"], s["launches"]
+        _count_main(launches, sums)
+        metric_err = max([metric_err] + [abs(metrics[k] - ref_metrics[k])
+                                         / max(abs(ref_metrics[k]), 1e-7)
+                                         for k in ("loss", "c_loss", "f_loss")])
+        print(f"[ddp] rank {r} ({ranks[r]['device']}) first step: "
+              + ", ".join(f"{n[:-3]} {v:.1f} ms" for n, v in t.items())
+              + f", {sum(t.values()):.1f} ms; loss {metrics['loss']:.4f} (one process "
+              f"{ref_metrics['loss']:.4f}), pairs {metrics['pairs']:.0f}; all-reduce of the flat "
+              f"gradient ({s['mb']:.1f} MB) alone "
+              + ", ".join(f"{x:.2f}" for x in s["allreduce_ms"]) + " ms", flush=True)
+        if launches != TRAIN_STEP or metrics["grads_finite"] != 1.0 or metrics["pairs"] != world:
+            fail(f"[ddp] rank {r}: launches {launches} (expected {TRAIN_STEP}), grads_finite "
+                 f"{metrics['grads_finite']}, pairs {metrics['pairs']}")
+    # the reduced gradient and losses are the one-process step's but for
+    # the order of sums (the card's atomic sums round differently from run
+    # to run); a wrong pair weighting is off by a factor
+    print(f"[ddp] after one step: gradients and parameters bit-equal across the {world} ranks; "
+          f"against the one-process step: reduced gradient max |dg| / max |g| {grad_err:.3g} "
+          f"(tolerance 1e-3), cosine {cos:.7f} (tolerance 0.999), the losses' largest "
+          f"relative difference {metric_err:.3g} (tolerance 1e-5)", flush=True)
+    if grad_err > 1e-3 or cos < 0.999 or metric_err > 1e-5:
+        fail("[ddp] the data-parallel step does not match the one-process step")
+
+    names = sorted(["model_0.pth"] + [f"model_best_{k}.pth" for k in
+                                      ("loss", "c_loss", "f_loss", "o_loss", "PIR", "IR")])
+    want_launches = {k: 2 * TRAIN_STEP[k] + VAL_STEP[k] for k in TRAIN_STEP}
+    runs = [(f"{backend} world {world}", [r["trainer"] for r in ranks])]
+    if nccl is not None:
+        runs.append(("nccl world 1", [nccl["trainer"]]))
+    for tag, trainers in runs:
+        for r, t in enumerate(trainers):
+            _count_main(t["launches"], sums)
+            steps_ms = "; ".join(", ".join(f"{n[:-3]} {v:.1f}" for n, v in x.items())
+                                 + f", {sum(x.values()):.1f} ms" for x in t["step_ms"])
+            print(f"[ddp] Trainer {tag} rank {r}: {t['steps']} steps ({steps_ms}), 1 "
+                  f"validation step, {t['wall']:.1f} s; val loss {t['best']['loss']:.4f}; "
+                  f"checkpoints written {len(t['saves'])}; launches {t['launches']}", flush=True)
+            if t["steps"] != 2 or t["launches"] != want_launches:
+                fail(f"[ddp] Trainer {tag} rank {r}: {t['steps']} steps, launches "
+                     f"{t['launches']} (expected {want_launches})")
+            if sorted(t["saves"]) != (names if r == 0 else []) or t["ckpts"] != names:
+                fail(f"[ddp] Trainer {tag} rank {r}: wrote {t['saves']}, found {t['ckpts']}")
+        if len({t["digest"] for t in trainers}) != 1 or any(t["best"] != trainers[0]["best"]
+                                                            for t in trainers):
+            fail(f"[ddp] Trainer {tag}: the ranks' parameters or validation metrics differ")
+    for r, rank_out in enumerate(ranks):
+        t = rank_out["tester"]
+        want = {k: v * t["pairs"] for k, v in FORWARD_LAUNCHES.items()}
+        want["fps"] = 0  # host pyramids
+        print(f"[ddp] Tester rank {r}: {t['pairs']} pairs, {t['wall'] / t['pairs']:.3f} s/pair; "
+              f"launches {t['launches']}", flush=True)
+        if {k: t["launches"][k] for k in want} != want:
+            fail(f"[ddp] Tester rank {r}: launches {t['launches']}, expected {want}")
+    if digests["ddp_world1"] != digests[f"ddp_world{world}"]:
+        fail(f"[ddp] the Tester's dumps at world {world} differ from world 1's")
+    print(f"[ddp] Tester at world {world}: 4 dumps equal world 1's byte for byte (sha256); the "
+          f"group ran {group_s:.1f} s" + (f", the NCCL Trainer {nccl_s:.1f} s" if nccl else "")
+          + f"; {time.time() - t_phase:.1f} s in all", flush=True)
+    _count_main(sums, main)
+    return sums
+
+
+REGISTRATION_SIZES = (5000, 2500, 1000, 500, 250)
+
+
+def phase_registration(rng):
+    """The registration evaluation (roitr_torch/eval/registration.py) on 16
+    synthetic dumps with known poses, 5000 correspondences each, 30-60% of
+    them outliers, and a TinyMatch ground-truth folder: registration
+    recall, inlier ratio and feature-match recall with RANSAC on the card
+    (ransac_backend "torch") and on the host ("numpy"), which must be
+    equal; the transforms within 5e-3; the card's winning hypothesis that
+    of the torch RANSAC on the CPU; the card's ms a pair at 50k hypotheses
+    at each of the protocol's five sample sizes, numpy's at 5000, and the
+    protocol's time on the card for 1623 pairs, extrapolated."""
+    from roitr_torch.eval.ransac import ransac_pose_estimation_correspondences
+    from roitr_torch.eval.ransac_torch import (
+        best_hypothesis,
+        ransac_pose_estimation_correspondences_torch,
+    )
+    from roitr_torch.eval.registration import (
+        benchmark_registration,
+        benchmark_registration_rotated,
+    )
+    from roitr_torch.eval.trajectory import read_trajectory
+
+    t_phase = time.time()
+    n_pairs, n_corr = 16, 5000
+    with tempfile.TemporaryDirectory() as tmp:
+        dump_dir = os.path.join(tmp, "dumps")
+        gt_dir = os.path.join(tmp, "gt", "TinyMatch")
+        os.makedirs(dump_dir)
+        os.makedirs(os.path.join(gt_dir, "scene0"))
+        log, inf, corr, shares = [], [], [], []
+        for p in range(n_pairs):
+            q, _ = np.linalg.qr(rng.randn(3, 3))
+            q *= np.sign(np.linalg.det(q))
+            t = rng.randn(3)
+            src = rng.rand(n_corr, 3) * 3.0
+            tgt = src @ q.T + t + rng.randn(n_corr, 3) * 0.005
+            share = rng.uniform(0.3, 0.6)
+            out = rng.permutation(n_corr)[:int(share * n_corr)]
+            tgt[out] = (rng.rand(len(out), 3) * 3.0) @ q.T + t
+            np.savez(os.path.join(dump_dir, f"{p}.npz"), src_corr_pts=src.astype(np.float32),
+                     tgt_corr_pts=tgt.astype(np.float32),
+                     confidence=rng.rand(n_corr).astype(np.float32), rot=q.astype(np.float32),
+                     trans=t.reshape(3, 1).astype(np.float32), src_pcd=src.astype(np.float32))
+            gt = np.eye(4)
+            gt[:3, :3], gt[:3, 3] = q, t
+            head = f"{p}\t{p + 2}\t{n_pairs + 2}"
+            log += [head] + ["\t".join(f"{v:.12f}" for v in row) for row in gt]
+            inf += [head] + ["\t".join(f"{v:.6f}" for v in row) for row in np.eye(6) * 100]
+            corr.append((src, tgt))
+            shares.append(share)
+        for name, lines in (("gt.log", log), ("gt.info", inf)):
+            with open(os.path.join(gt_dir, "scene0", name), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        print(f"[registration] {n_pairs} synthetic dumps, {n_corr} correspondences each, "
+              f"outliers {min(shares):.0%}-{max(shares):.0%}", flush=True)
+
+        # the metrics with either backend (5000 hypotheses, 1000 sampled correspondences)
+        res, est = {}, {}
+        for backend in ("torch", "numpy"):
+            kw = dict(ransac_backend=backend, device="cuda", ransac_iterations=5000, seed=0)
+            exp = os.path.join(tmp, backend)
+            t0 = time.time()
+            reg = benchmark_registration(dump_dir, exp, "TinyMatch", 1000, gt_folder=gt_dir, **kw)
+            rot = benchmark_registration_rotated(dump_dir, exp, "TinyMatch", 1000, **kw)
+            wall = time.time() - t0
+            res[backend] = (reg, rot)
+            est[backend] = read_trajectory(os.path.join(exp, "TinyMatch", "1000", "scene0",
+                                                        "est.log"))[1]
+            print(f"[registration] {backend}: Redwood recall {reg['mean_recall']:.4f}, RR "
+                  f"(rotated protocol) {rot['registration_recall']:.4f}, IR "
+                  f"{reg['inlier_ratio']:.4f}, FMR {reg['feature_match_recall']:.4f}; both "
+                  f"protocols {wall:.1f} s", flush=True)
+        if res["torch"] != res["numpy"]:
+            fail(f"[registration] the metrics differ between backends: {res}")
+        diff = float(np.abs(est["torch"] - est["numpy"]).max())
+        print(f"[registration] metrics equal; the {n_pairs} transforms torch against numpy: "
+              f"max |dT| {diff:.3g} (tolerance 5e-3)", flush=True)
+        if diff > 5e-3:
+            fail("[registration] transforms torch against numpy beyond 5e-3")
+
+    # the card's winning hypothesis against the CPU's, at 50k hypotheses
+    f = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    for p in range(2):
+        src, tgt = corr[p][0][:1000], corr[p][1][:1000]
+        idx = torch.from_numpy(np.random.RandomState(p).randint(0, 1000, size=(50000, 3)))
+        card = best_hypothesis(f(src).cuda(), f(tgt).cuda(), idx.cuda(), 0.05)
+        cpu = best_hypothesis(f(src), f(tgt), idx, 0.05)
+        print(f"[registration] pair {p}, 1000 correspondences, 50000 hypotheses: winner "
+              f"{card[3]} ({card[2]} inliers) on the card, {cpu[3]} ({cpu[2]}) on the CPU",
+              flush=True)
+        if card[2:] != cpu[2:]:
+            fail("[registration] the card's winning hypothesis is not the CPU's")
+
+    # times a pair at 50k hypotheses
+    card_ms = {}
+    for n in REGISTRATION_SIZES:
+        ransac_pose_estimation_correspondences_torch(corr[0][0][:n], corr[0][1][:n], seed=0)
+        ms = []
+        for p in range(1, 5):
+            t0 = time.time()
+            ransac_pose_estimation_correspondences_torch(corr[p][0][:n], corr[p][1][:n], seed=0)
+            ms.append((time.time() - t0) * 1e3)
+        card_ms[n] = ms
+        print(f"[registration] card, {n} correspondences, 50000 hypotheses: "
+              + ", ".join(f"{x:.1f}" for x in ms) + " ms a pair", flush=True)
+    host_s = []
+    for p in range(2):
+        t0 = time.time()
+        ransac_pose_estimation_correspondences(corr[p][0], corr[p][1], seed=0)
+        host_s.append(time.time() - t0)
+    per_pair = sum(float(np.mean(v)) for v in card_ms.values())
+    print(f"[registration] numpy, 5000 correspondences, 50000 hypotheses: "
+          + ", ".join(f"{x:.2f}" for x in host_s) + " s a pair; the protocol on the card "
+          f"(extrapolated, not run): 1623 pairs x the five sizes = {1623 * per_pair / 1e3:.1f} s "
+          f"({per_pair:.1f} ms a pair); {time.time() - t_phase:.1f} s in all", flush=True)
+
+
 SOURCES = {
     "fps": ("roitr_torch/csrc/fps.cu", "roitr_tpu/ops/pallas/fps_kernel.py:47"),
     "geo_embedding": ("roitr_torch/csrc/geo_embedding.cu",
@@ -2390,11 +2775,13 @@ def main() -> int:
     packed_launches = phase_packed_training(rng, launches)
     phase_packed_train_parity(rng)
     fd_launches = phase_fdmatch(rng)
-    # the train steps of the last three phases, counted as the Trainer runs'
+    # the train steps of the last phases, counted as the Trainer runs'
     later = {}
     phase_bf16(rng, later)
     phase_remat(rng, later)
     phase_workers(rng, later)
+    phase_ddp(rng, later)
+    phase_registration(rng)
 
     kernels = []
     for name, row in rows.items():
@@ -2404,8 +2791,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             # the training runs: [training], [packed training], the 4DMatch
-            # Trainer of [4dmatch], the train steps of [bf16] and [remat]
-            # and the Trainer of [workers]
+            # Trainer of [4dmatch], the train steps of [bf16] and [remat],
+            # the Trainer of [workers] and every rank's steps and Trainers
+            # of [ddp]
             "launches": (launches[name] + packed_launches[name] + fd_launches[name]
                          + later.get(name, 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],

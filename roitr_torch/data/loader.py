@@ -13,8 +13,9 @@ Unlike JAX's, a bucket's ragged tail is emitted as a smaller batch, never
 filled by repeating its last pair: an eager step has no compiled program
 per batch size to reuse, and a repeated pair would weigh twice in that
 step's mean gradient. With `num_workers` > 0 the items are prepared in
-that many worker subprocesses (data/worker_pool.py), in the same order;
-per-host sharding comes with DDP.
+that many worker subprocesses (data/worker_pool.py), in the same order.
+Under data parallelism each process takes its stride of the shuffled
+order (`process_index`, `process_count`), as JAX's does.
 """
 
 from __future__ import annotations
@@ -95,18 +96,21 @@ class BucketBatcher:
 
 def iterate_batches(dataset, batch_size: int = 1, shuffle: bool = False, seed: int = 0,
                     max_items: Optional[int] = None, prefetch: int = 2, pack: int = 0,
-                    device="cpu", num_workers: int = 0) -> Iterator[Batch]:
+                    device="cpu", num_workers: int = 0, process_index: int = 0,
+                    process_count: int = 1) -> Iterator[Batch]:
     """Yield batches of the dataset's items on `device`, in the JAX
     loader's order, prepared up to `prefetch` batches ahead on one
     background thread (packing and the host-to-device copy, and the dataset
     reads, or with num_workers > 0 the reads of a WorkerPool's items).
     batch_size 1 yields one PairInputs an item; pack > 1 packs every
-    `pack` pairs of a batch (see BucketBatcher). The pool is closed when
-    the iteration ends, fails or is abandoned."""
+    `pack` pairs of a batch (see BucketBatcher). After the shuffle this
+    process keeps the indices `process_index::process_count`, then the
+    first `max_items` of them (JAX's order). The pool is closed when the
+    iteration ends, fails or is abandoned."""
     indices = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(indices)
-    indices = [int(i) for i in indices[:max_items]]
+    indices = [int(i) for i in indices[process_index::process_count][:max_items]]
     pool = WorkerPool(dataset, num_workers) if num_workers > 0 and indices else None
     items = pool.imap(indices) if pool is not None else (dataset[i] for i in indices)
 

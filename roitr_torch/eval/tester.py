@@ -15,8 +15,12 @@ With `cfg.packed_batch` and `cfg.batch_size` B > 1, B same-bucket pairs
 go through one packed forward (data/packing.py) and are dumped one file a
 pair, as the single-pair loop dumps them. With `cfg.num_workers` > 1
 the pairs are prepared in that many worker subprocesses
-(data/worker_pool.py, at most one a core), in order, while the card runs
-the forwards. Sharding over several cards (`dp_size > 1`) comes with DDP.
+(data/worker_pool.py, at most one a core, the host's ranks sharing its
+cores), in order, while the card runs the forwards. Across several cards
+(`dp_size` > 1 under torchrun, one process a card:
+parallel/distributed.py) rank r of W runs the pairs r, r + W, ... and
+writes their dumps under their indices in the split, as JAX's Tester
+shards the pair stream over its `data` mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from roitr_torch.data.packing import pack_pairs
 from roitr_torch.data.worker_pool import WorkerPool
 from roitr_torch.models.roitr import RoITr, resolve_device
 from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
+from roitr_torch.parallel.distributed import barrier, init_distributed, local_world, rank, world
 from roitr_torch.train.checkpoint import load_checkpoint
 from roitr_torch.train.trainer import Trainer
 from roitr_torch.utils.packing import to_device
@@ -195,19 +200,20 @@ class Tester:
     `cfg.device_prep` the dataset ships zero normals and they are estimated
     on the device before the forward. With `cfg.packed_batch`, batches of
     `cfg.batch_size` same-bucket pairs run as one packed forward; that needs
-    host pyramids (`cfg.host_pyramid`) or device prep, which builds them."""
+    host pyramids (`cfg.host_pyramid`) or device prep, which builds them.
+    In a process group each rank runs its stride of the split (and packs
+    only its own pairs); `test` returns once every rank has written its
+    dumps."""
 
     def __init__(self, cfg: Config, dataset=None, state_dict=None, device="cuda"):
-        if int(cfg.dp_size or 1) > 1:
-            raise NotImplementedError("dp_size > 1: sharding the test split over several cards "
-                                      "comes with DDP, a later slice of the port")
         self.pack = max(int(cfg.batch_size or 1), 1) if cfg.packed_batch else 1
         if self.pack > 1 and not (cfg.host_pyramid or cfg.device_prep):
             raise ValueError("packed_batch requires host_pyramid or device_prep")
         if cfg.dump_mode not in ("full", "c2f"):
             raise ValueError(f"dump_mode must be 'full' or 'c2f', got {cfg.dump_mode!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = init_distributed(cfg, resolve_device(device))
+        self.rank, self.world = rank(), world()
         self.fetch_keys = DUMP_KEYS if cfg.dump_mode == "full" else C2F_KEYS
         self.snapshot_dir = os.path.join("snapshot", cfg.exp_dir, cfg.benchmark)
         os.makedirs(self.snapshot_dir, exist_ok=True)
@@ -235,24 +241,24 @@ class Tester:
         data = trim_outputs(out, dict_to_pair(item), metric_index=item.get("metric_index"))
         dump_pair(os.path.join(self.snapshot_dir, str(idx)), data)
 
-    def _items(self, n: int):
-        """(pool or None, the dataset's first n items in order): from
-        min(cfg.num_workers, cores) worker subprocesses when that is more
-        than one and there is more than one pair (JAX's Tester._items),
-        else read here."""
-        workers = min(int(self.cfg.num_workers), os.cpu_count() or 1)
-        if workers > 1 and n > 1:
+    def _items(self, indices: List[int]):
+        """(pool or None, the dataset's items at `indices`, in order): from
+        min(cfg.num_workers, cores // ranks on the host) worker subprocesses
+        when that is more than one and there is more than one pair (JAX's
+        Tester._items), else read here."""
+        workers = min(int(self.cfg.num_workers), (os.cpu_count() or 1) // local_world())
+        if workers > 1 and len(indices) > 1:
             pool = WorkerPool(self.dataset, workers)
-            return pool, pool.imap(range(n))
-        return None, (self.dataset[i] for i in range(n))
+            return pool, pool.imap(indices)
+        return None, (self.dataset[i] for i in indices)
 
-    def _groups(self, items):
+    def _groups(self, indices: List[int], items):
         """(entries, PairInputs on the device) a forward: one pair each, or
         with packing up to `self.pack` same-bucket pairs packed (a bucket's
         ragged tail as a smaller batch). entries: (index, item, slot in the
         batch or None)."""
         if self.pack == 1:
-            for idx, item in enumerate(items):
+            for idx, item in zip(indices, items):
                 yield [(idx, item, None)], dict_to_pair(item, self.device)
             return
         pending: Dict[int, list] = {}
@@ -263,7 +269,7 @@ class Tester:
             return ([(idx, item, i) for i, (idx, item) in enumerate(group)],
                     to_device(batch, self.device))
 
-        for idx, item in enumerate(items):
+        for idx, item in zip(indices, items):
             bucket = int(item["src_points"].shape[0])
             pending.setdefault(bucket, []).append((idx, item))
             if len(pending[bucket]) == self.pack:
@@ -277,8 +283,10 @@ class Tester:
         batch), queues its forward and the copies of its outputs; one worker
         thread waits for those copies, trims and writes the dumps, so the
         next forward's host prep and forward overlap it. The queue holds at
-        most two forwards' outputs."""
-        n = len(self.dataset)
+        most two forwards' outputs. In a process group this rank runs its
+        stride of the pairs, then waits for the others."""
+        indices = list(range(self.rank, len(self.dataset), self.world))
+        n = len(indices)
         t0 = time.perf_counter()
         jobs: queue.Queue = queue.Queue(maxsize=2)
         errors: list = []
@@ -297,11 +305,11 @@ class Tester:
                 except Exception as e:  # re-raised on the main thread
                     errors.append(e)
 
-        pool, items = self._items(n)
+        pool, items = self._items(indices)
         thread = threading.Thread(target=worker, name="roitr-tester-dump", daemon=True)
         thread.start()
         try:
-            for entries, pair in self._groups(items):
+            for entries, pair in self._groups(indices, items):
                 if errors:
                     break
                 out = self._forward(pair)
@@ -316,7 +324,10 @@ class Tester:
             raise errors[0]
         if n:
             wall = time.perf_counter() - t0
-            print(f"tested {n} pairs, {wall / n:.3f}s/pair (wall incl. host prep and dumps)")
+            where = f" on rank {self.rank} of {self.world}" if self.world > 1 else ""
+            print(f"tested {n} pairs{where}, {wall / n:.3f}s/pair (wall incl. host prep and "
+                  "dumps)")
+        barrier()
 
 
 def get_trainer(cfg: Config, device="cuda"):

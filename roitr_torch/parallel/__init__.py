@@ -1,2 +1,3 @@
 """Training step and optimizer of the port (one pair, a list of pairs or a packed
-batch a step, one card)."""
+batch a step), and data parallelism over cards, one process a card
+(parallel/distributed.py)."""

@@ -10,7 +10,10 @@ outputs with a leading B) or a list of B single pairs (the loader's
 the pairs' (JAX's vmap over pairs, then `jnp.mean`). Under bf16 compute
 (`compute_dtype`) the losses and metrics are fp32, the optimizer updates
 fp32 parameters and the NaN guard reads every fp32 gradient; there is no
-loss scaling, as in JAX. Data parallelism is a later slice of the port.
+loss scaling, as in JAX. Under data parallelism (one process a card,
+parallel/distributed.py) each rank's gradient and metrics are reduced in one
+all-reduce before the guard and the update, whenever a process group is
+initialized.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import time
 from typing import Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from roitr_torch.losses import evaluate, overall_loss
 from roitr_torch.models.roitr import PairInputs, RoITr
+from roitr_torch.parallel.distributed import all_reduce_weighted_
 
 
 class TrainOptimizer:
@@ -175,7 +180,11 @@ class _Laps:
             self.t = t
 
 
-def train_step(model: RoITr, optimizer: TrainOptimizer, batch: Batch,
+# the metrics of a train or eval step, in the order the process group reduces them
+STEP_METRICS = ("loss", "c_loss", "f_loss", "o_loss", "PIR", "IR")
+
+
+def train_step(model: RoITr, optimizer: TrainOptimizer, batch: Optional[Batch],
                generator: torch.Generator, timings: Optional[dict] = None) -> Dict[str, float]:
     """One batch through forward, losses, backward and the optimizer; returns
     the means over its pairs of loss, c_loss, f_loss, o_loss, PIR and IR,
@@ -187,10 +196,24 @@ def train_step(model: RoITr, optimizer: TrainOptimizer, batch: Batch,
     Gumbel noise, pair by pair in batch order. JAX's NaN guard covers the
     losses and every gradient: one pair's non-finite loss skips the update.
     Given a dict, `timings` receives the forward, backward and optimizer ms
-    (summed over a list's pairs)."""
+    (summed over a list's pairs).
+
+    In a process group (parallel/distributed.py), `batch` is this rank's
+    share of a step of the group (None when its loader has run out: it
+    joins with no pairs, `lockstep`). Every gradient and the
+    metrics, each times the rank's pairs n_r, go into one flat buffer that
+    one all-reduce sums over the ranks; dividing by the sum of n_r gives
+    the means over the step's pairs (JAX's mean over its global batch,
+    exact when ranks hold different counts). The guard reads that reduced
+    buffer, so every rank makes the same update; the metrics returned are
+    the step's, with its pair count under "pairs"; `timings` also receives
+    the all-reduce's ms."""
+    distributed = dist.is_initialized()
+    if batch is None and not distributed:
+        raise ValueError("train_step needs a batch (None only in a process group)")
     cfg = model.cfg
     laps = _Laps(model.device, timings)
-    pairs = batch if isinstance(batch, list) else [batch]
+    pairs = [] if batch is None else batch if isinstance(batch, list) else [batch]
     per_pair = []
     for pair in pairs:
         out = model(pair, train=True, with_gt=True, generator=generator)
@@ -199,16 +222,46 @@ def train_step(model: RoITr, optimizer: TrainOptimizer, batch: Batch,
         (losses["loss"] / len(pairs)).backward()
         laps.lap("backward_ms")
         per_pair.append({k: v.detach() for k, v in losses.items()})
-    metrics = {k: torch.stack([m[k] for m in per_pair]).mean() for k in per_pair[0]}
-    with torch.no_grad():  # one pass over every gradient element, as JAX's guard
-        flat = torch.cat([torch.stack([m["loss"] for m in per_pair])] + [
-            p.grad.reshape(-1) for p in optimizer.params if p.grad is not None])
-        grads_finite = bool(torch.isfinite(flat).all())
+    with torch.no_grad():
+        if distributed:
+            metrics, grads_finite = _reduce_step(optimizer, per_pair, batch, model.device)
+            laps.lap("allreduce_ms")
+        else:
+            metrics = {k: torch.stack([m[k] for m in per_pair]).mean() for k in per_pair[0]}
+            # one pass over every gradient element, as JAX's guard
+            flat = torch.cat([torch.stack([m["loss"] for m in per_pair])] + [
+                p.grad.reshape(-1) for p in optimizer.params if p.grad is not None])
+            grads_finite = bool(torch.isfinite(flat).all())
     optimizer.step(grads_finite)
     laps.lap("optimizer_ms")
     result = {k: float(v) for k, v in metrics.items()}
     result["grads_finite"] = float(grads_finite)
     return result
+
+
+def _reduce_step(optimizer: TrainOptimizer, per_pair: List[Dict[str, torch.Tensor]],
+                 batch: Optional[Batch], device: torch.device):
+    """The distributed half of train_step: (the step's metrics, whether the
+    reduced buffer is finite), with every parameter's .grad set to its
+    slice of the reduced buffer."""
+    n = 0 if batch is None else batch_pairs(batch)
+    params = optimizer.params
+    if per_pair:
+        mean = torch.stack([torch.stack([m[k] for m in per_pair]).mean() for k in STEP_METRICS])
+    else:
+        mean = torch.zeros(len(STEP_METRICS), device=device)
+    flat = torch.cat([p.grad.reshape(-1) if p.grad is not None
+                      else torch.zeros(p.numel(), device=p.device) for p in params]
+                     + [mean.to(params[0].dtype)])
+    total = all_reduce_weighted_(flat, n)
+    grads_finite = bool(torch.isfinite(flat).all())
+    offset = 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    metrics = dict(zip(STEP_METRICS, flat[offset:]))
+    metrics["pairs"] = total
+    return metrics, grads_finite
 
 
 @torch.no_grad()

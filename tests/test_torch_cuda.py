@@ -1103,3 +1103,74 @@ def test_tester_with_workers_on_card(dev, tmp_path, monkeypatch):
         dumps[workers] = [open(f"snapshot/w{workers}/3DMatch/{i}.pth", "rb").read()
                           for i in range(3)]
     assert dumps[2] == dumps[0]
+
+
+def test_ddp_step_on_card_matches_one_process(dev):
+    """Two gloo ranks on this card (roitr_torch/parallel/distributed.py), one
+    pair each, against the one-process step of both pairs on the card with
+    the same Gumbel noise (tests/test_torch_ddp.py's arrangement): the
+    ranks' gradients and parameters are bit-equal, every kernel launched on
+    each rank, each rank's losses are the one-process step's within rtol
+    1e-5, and the reduced gradient is the one-process gradient within
+    1e-3 of its largest entry, cosine >= 0.999 (the card's atomic sums
+    round differently run to run; a wrong pair weighting is off by a
+    factor)."""
+    from ddp_ranks import capture_grads, card_step
+    from roitr_torch.data.loader import dict_to_pair
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.parallel.distributed import spawn
+    from roitr_torch.parallel.train_step import make_optimizer, train_step
+    from torch_parity import pair_arrays
+
+    cfg = _tiny_cfg().replace(num_gt_coarse_corr=32)
+    pairs = [pair_arrays(3, 512, 480, 400), pair_arrays(4, 512, 470, 410)]
+    model = RoITr(cfg, device=dev, seed=0)
+    opt = make_optimizer(cfg, model, steps_per_epoch=1)
+    states = []
+    model.register_forward_pre_hook(
+        lambda m, args, kw: states.append(kw["generator"].get_state().numpy().copy()),
+        with_kwargs=True)
+    grads = capture_grads(opt)
+    ref = train_step(model, opt, [dict_to_pair(p, dev) for p in pairs],
+                     torch.Generator().manual_seed(0))
+    ranks = spawn(card_step, 2, "gloo", args=(cfg, pairs, states), devices=["cuda:0"] * 2,
+                  timeout_s=600)
+    assert len({r["flat_digest"] for r in ranks}) == len({r["grad_digest"] for r in ranks}) == 1
+    for r in ranks:
+        assert all(v > 0 for v in r["launches"].values()), r["launches"]
+        assert r["metrics"]["grads_finite"] == 1.0 and r["metrics"]["pairs"] == 2
+        for k in ("loss", "c_loss", "f_loss"):
+            assert r["metrics"][k] == pytest.approx(ref[k], rel=1e-5, abs=1e-7), k
+    g, want = ranks[0]["grad"].astype(np.float64), grads[0].astype(np.float64)
+    assert np.abs(g - want).max() <= 1e-3 * np.abs(want).max()
+    assert g @ want / (np.linalg.norm(g) * np.linalg.norm(want)) >= 0.999
+
+
+def test_torch_ransac_on_card_matches_numpy(dev):
+    """The torch RANSAC on the card against the numpy backend (transforms
+    within 5e-3, JAX's own bound for its accelerator RANSAC) and against the
+    torch RANSAC on the CPU (the same winning hypothesis: elementwise fp32
+    products round alike on both)."""
+    from roitr_torch.eval.ransac import ransac_pose_estimation_correspondences
+    from roitr_torch.eval.ransac_torch import (
+        best_hypothesis,
+        ransac_pose_estimation_correspondences_torch,
+    )
+
+    rng = np.random.RandomState(0)
+    n = 2000
+    src = rng.randn(n, 3)
+    q, _ = np.linalg.qr(rng.randn(3, 3))
+    q *= np.sign(np.linalg.det(q))
+    tgt = src @ q.T + rng.randn(3) * 0.5 + rng.randn(n, 3) * 0.005
+    out = rng.permutation(n)[: n // 2]
+    tgt[out] += rng.randn(len(out), 3) * 2.0
+    kw = dict(max_iterations=20000, seed=3)
+    card = ransac_pose_estimation_correspondences_torch(src, tgt, device=dev, **kw)
+    np.testing.assert_allclose(card, ransac_pose_estimation_correspondences(src, tgt, **kw),
+                               atol=5e-3)
+    idx = torch.from_numpy(np.random.RandomState(3).randint(0, n, size=(20000, 3)))
+    f = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    on_card = best_hypothesis(f(src).to(dev), f(tgt).to(dev), idx.to(dev), 0.05)
+    on_cpu = best_hypothesis(f(src), f(tgt), idx, 0.05)
+    assert on_card[2:] == on_cpu[2:]

@@ -60,6 +60,12 @@ TRAINING_MODULES = (
     "roitr_torch.losses", "roitr_torch.parallel.train_step", "roitr_torch.train.trainer",
     "roitr_torch.train.checkpoint", "roitr_torch.data.loader", "roitr_torch.utils.logging",
 )
+# data parallelism and the registration evaluation, likewise
+DDP_AND_REGISTRATION_MODULES = (
+    "roitr_torch.parallel.distributed", "roitr_torch.eval.ransac_torch",
+    "roitr_torch.eval.registration", "roitr_torch.eval.ransac", "roitr_torch.eval.benchmark",
+    "roitr_torch.eval.trajectory",
+)
 
 
 def test_imported_modules_hold_nothing_of_jax():
@@ -71,3 +77,4 @@ def test_imported_modules_hold_nothing_of_jax():
     imported = res.stdout.split()
     assert len(imported) >= 35  # every module of the port was imported
     assert set(TRAINING_MODULES) <= set(imported)
+    assert set(DDP_AND_REGISTRATION_MODULES) <= set(imported)

@@ -353,8 +353,9 @@ def test_a_failure_leaves_no_thread_and_no_queued_dump(tmp_path, monkeypatch, wh
 
 @pytest.mark.parametrize("option", [dict(dp_size=2), dict(packed_batch=True)])
 def test_tester_refuses_later_slices(tmp_path, monkeypatch, option):
-    """dp_size > 1 is refused (DDP is a later slice). packed_batch is
-    ported: over three pairs in packs of two (a full pack and a ragged tail
+    """dp_size > 1 without a process group raises, naming the torchrun
+    command that runs it (tests/test_torch_ddp.py runs the Tester at world
+    2). packed_batch is ported: over three pairs in packs of two (a full pack and a ragged tail
     of one), with host pyramids and with device prep
     in full and c2f dumps, the dumps equal the single-pair Tester's file by
     file: the same keys, dtypes and shapes, arrays within rtol 1e-4 / atol
@@ -364,7 +365,7 @@ def test_tester_refuses_later_slices(tmp_path, monkeypatch, option):
     pyramids or device prep a packed Tester is refused, as JAX's is."""
     monkeypatch.chdir(tmp_path)
     if "dp_size" in option:
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(RuntimeError, match="dp_size=2 .*torchrun --nproc_per_node=2"):
             PortTester(Config(**SMALL, **option), dataset=SyntheticPairs(1, 128), device="cpu",
                        state_dict={})
         return

@@ -390,7 +390,8 @@ def test_trainer_refuses_batches(tmp_path, monkeypatch):
     the step counting optimizer steps and the learning rate falling once an
     epoch of two batches (JAX's optimizer is given the epoch's pairs, 4, so
     its rate would not fall until the second epoch's end: ROADMAP Queue 3);
-    data parallelism is still refused."""
+    dp_size 2 without a process group raises, naming the torchrun command
+    that runs it (tests/test_torch_ddp.py trains at world 2)."""
     monkeypatch.chdir(tmp_path)
     cfg = Config(**{**TRAINER_CFG, "batch_size": 2, "training_max_iter": 4,
                     "scheduler_gamma": 0.5})
@@ -403,7 +404,7 @@ def test_trainer_refuses_batches(tmp_path, monkeypatch):
         assert trainer.step == 2 * (epoch + 1) and np.isfinite(metrics["loss"])
         assert lr() == pytest.approx(cfg.lr * want, rel=1e-12)
     assert np.isfinite(trainer.eval_epoch(1)["loss"])
-    with pytest.raises(NotImplementedError, match="dp_size"):
+    with pytest.raises(RuntimeError, match="dp_size=2 .*torchrun --nproc_per_node=2"):
         Trainer(cfg.replace(dp_size=2), SyntheticPairs(1, 128), SyntheticPairs(1, 128),
                 device="cpu")
 
