@@ -40,7 +40,7 @@ Phases, each of which exits non-zero on failure:
                pairs without a pyramid; match request walls, prep="host",
                with host_pyramid on and off in turns
   8. tester    the Tester (get_trainer) at full 3DMatch width from
-               configs/test/tdmatch.yaml (knn_method overridden) on a test
+               configs/test/tdmatch.yaml (its knn_method approx) on a test
                split in the reference layout: three synthetic pairs of
                20k-30k points as .pth fragments and an info pickle in a
                temporary directory; host prep (host pyramids) with full
@@ -118,6 +118,20 @@ Phases, each of which exits non-zero on failure:
                card's ms a pair at 50k hypotheses for 5000, 2500, 1000, 500
                and 250 correspondences, numpy's s a pair at 5000, and the
                protocol's time on the card for 1623 pairs, extrapolated
+  19. sinkhorn tol  the plain loop's convergence exit (backend "xla", tol
+               1e-3) on 256 masked (65, 65) patches, card against CPU (the
+               same iteration count, below 100; scores within 1e-5), its ms
+               beside the kernel's 100 iterations; a forward at 4096 under
+               the default config launches the Sinkhorn kernel, with tol >
+               0 too (and warns), under "xla" not; utils/profiling.py
+               `trace` of the default forward names the RPE attention kernel
+  20. cli      `python -m roitr_torch` at full 3DMatch width on 3 synthetic
+               pairs of 20k-30k points: train mode in process from a copy of
+               configs/train/tdmatch.yaml cut to 2 train and 2 validation
+               steps (launches exact, each step's ms, checkpoints), then test
+               mode in a subprocess from a copy of configs/test/tdmatch.yaml
+               (knn_method approx) with the trained weights as a reference
+               RoITr .pth; its dumps equal an in-process Tester's by sha256
 The phases before [workers] prepare pairs in process (num_workers 0).
 It then prints one JSON line with each kernel's numbers, the card's name
 and power limit, and last the result line
@@ -1230,7 +1244,7 @@ def phase_tester(rng):
             yaml_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                                      "test", "tdmatch.yaml")
             overrides = dict(root=root, test_info=info, pretrain=os.path.join(tmp, "weights.pth"),
-                             knn_method="exact", num_workers=0)
+                             num_workers=0)
             print(f"[tester] {yaml_path} with overrides {overrides}", flush=True)
             cfg = load_config(yaml_path, **overrides)
             torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
@@ -1767,14 +1781,13 @@ VAL_STEP = {"fps": 3, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1,
 
 
 def _fd_cfg(kind: str, **overrides):
-    """configs/<kind>/fdmatch.yaml through load_config with the port's one
-    override, knn_method "exact" (the test config's "approx" is a TPU
-    operator), and the pairs prepared in process (num_workers 0)."""
+    """configs/<kind>/fdmatch.yaml through load_config, the pairs prepared
+    in process (num_workers 0)."""
     from roitr_torch.config import load_config
 
     return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                                     kind, "fdmatch.yaml"),
-                       **{"knn_method": "exact", "num_workers": 0, **overrides})
+                       **{"num_workers": 0, **overrides})
 
 
 def _write_flow_entries(rng, base, sizes):
@@ -1997,7 +2010,7 @@ def _fdmatch_tester(tmp, split, rng):
                   fine_matching_confidence_threshold=0.0)
     torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
     print(f"[4dmatch] Tester: configs/test/fdmatch.yaml ({cfg.benchmark}, host_pyramid "
-          f"{cfg.host_pyramid}) with root, test_info, pretrain, knn_method='exact' and "
+          f"{cfg.host_pyramid}) with root, test_info, pretrain and "
           f"fine_matching_confidence_threshold=0.0; dump_corr_cap {cfg.dump_corr_cap}",
           flush=True)
     dumps = {}
@@ -2290,8 +2303,7 @@ def phase_workers(rng, main):
             root, info = _write_tdmatch_split(rng, sizes, tmp)
             cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                                            "test", "tdmatch.yaml"),
-                              root=root, test_info=info, pretrain=os.path.join(tmp, "w.pth"),
-                              knn_method="exact")
+                              root=root, test_info=info, pretrain=os.path.join(tmp, "w.pth"))
             torch.save({"model": RoITr(cfg, device="cpu", seed=0).state_dict()}, cfg.pretrain)
             ds = get_dataset(cfg, "test")
             prep = []
@@ -2517,7 +2529,7 @@ def phase_ddp(rng, main):
             tcfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                                             "test", "tdmatch.yaml"),
                                root=root, test_info=info, pretrain=os.path.join(tmp, "w.pth"),
-                               knn_method="exact", num_workers=0)
+                               num_workers=0)
             torch.save({"model": RoITr(tcfg, device="cpu", seed=0).state_dict()}, tcfg.pretrain)
             get_trainer(tcfg.replace(exp_dir="ddp_world1")).test()
             job = dict(cfg=cfg, pairs=items, states=states, base=tmp, train_cfg=cfg,
@@ -2740,6 +2752,253 @@ def phase_registration(rng):
           f"({per_pair:.1f} ms a pair); {time.time() - t_phase:.1f} s in all", flush=True)
 
 
+def phase_sinkhorn_tol(rng):
+    """sinkhorn_tol on the card. The plain loop's convergence exit (backend
+    "xla", tol 1e-3) on 256 masked (65, 65) patches against the CPU's: the
+    same iteration count, below num_iter, and the scores within 1e-5; its
+    ms beside the kernel's fixed 100 iterations. Then one forward at the
+    4096 bucket under the default config (launches row 4), with tol > 0
+    under "pallas" (row 4 still, and JAX's warning) and under "xla" (no
+    row 4), the first inside utils/profiling.py `trace`, whose Chrome trace
+    must name the RPE attention kernel."""
+    import glob
+    import warnings
+
+    from roitr_torch.config import Config
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.kernels.sinkhorn_kernel import sinkhorn_iterate
+    from roitr_torch.models.roitr import RoITr
+    from roitr_torch.ops.sinkhorn import log_sinkhorn_ot, sinkhorn_early_exit, sinkhorn_inputs
+    from roitr_torch.utils.profiling import annotate, trace
+
+    t_phase = time.time()
+    p, k, num_iter, tol = 256, 64, 100, 1e-3
+    scores = torch.from_numpy((rng.randn(p, k, k) * 2.0).astype(np.float32))
+    rm = torch.from_numpy(rng.rand(p, k) > 0.2)
+    cm = torch.from_numpy(rng.rand(p, k) > 0.2)
+    rm[-16:] = cm[-16:] = False  # empty slots of a fixed-capacity buffer
+    alpha = torch.tensor(1.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.to(dev) for t in (scores, rm, cm, alpha)]
+        padded, log_mu, log_nu, norm = sinkhorn_inputs(*args)
+        out, iters = sinkhorn_early_exit(padded, log_mu, log_nu, num_iter, tol)
+        reset_launch_counts()
+        via_ot = log_sinkhorn_ot(*args, num_iter=num_iter, tol=tol, backend="xla")
+        runs[dev] = (out.cpu(), iters, (via_ot - (out - norm[:, None, None])).abs().max().item(),
+                     launch_counts["sinkhorn"])
+    # entries of masked rows or columns sit near -1e6 (-3e6 with the
+    # potentials), where fp32 steps by 0.25: compared where the CPU's is not
+    valid = runs["cpu"][0] > -1e5
+    err = (runs["cuda"][0] - runs["cpu"][0])[valid].abs().max().item()
+    exit_ms = cuda_ms(lambda: sinkhorn_early_exit(padded, log_mu, log_nu, num_iter, tol), 5)
+    kernel_ms = cuda_ms(lambda: sinkhorn_iterate(padded, log_mu, log_nu, num_iter), 20)
+    print(f"[sinkhorn tol] (256, 65, 65), tol {tol:g}, backend xla: exit after "
+          f"{runs['cuda'][1]} iterations on the card, {runs['cpu'][1]} on the CPU (cap "
+          f"{num_iter}); card vs CPU max abs err {err:.3g} on the {int(valid.sum())} entries "
+          f"of valid rows and columns (tol 1e-5); log_sinkhorn_ot = the "
+          f"loop - norm within {runs['cuda'][2]:.3g}, Sinkhorn kernel launches "
+          f"{runs['cuda'][3]}; the exit {exit_ms:.3f} ms (one host read an iteration) against "
+          f"the kernel's {num_iter} iterations {kernel_ms:.4f} ms", flush=True)
+    if not (runs["cuda"][1] == runs["cpu"][1] < num_iter and err <= 1e-5
+            and runs["cuda"][2] == 0.0 and runs["cuda"][3] == 0):
+        fail("[sinkhorn tol] the card's convergence exit disagrees with the CPU's")
+
+    arr = make_pair_arrays(rng, 4096, 3900, 3600)
+    pair = _pair(arr, 3900, 3600, "cuda")
+    model = RoITr(Config(benchmark="3DMatch"), device="cuda", seed=0).eval()
+    default = model.cfg
+    launches, caught = {}, []
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        for name, cfg in (("default", default),
+                          ("pallas tol", default.replace(sinkhorn_tol=tol)),
+                          ("xla tol", default.replace(sinkhorn_backend="xla", sinkhorn_tol=tol))):
+            model.cfg = cfg
+            reset_launch_counts()
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                if name == "default":
+                    with trace(os.path.join(tmp, "profiles")) as log_dir:
+                        with annotate("roitr_forward"):
+                            out = model(pair)
+                        torch.cuda.synchronize()
+                else:
+                    out = model(pair)
+            torch.cuda.synchronize()
+            caught.append(any("sinkhorn_tol" in str(x.message) for x in w))
+            launches[name] = dict(launch_counts)
+            if not torch.isfinite(out["matching_scores"]).all():
+                fail(f"[sinkhorn tol] {name}: matching scores not finite")
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        names = {e.get("name", "") for f in files for e in json.load(open(f))["traceEvents"]}
+    model.cfg = default
+    rpe = sorted(n for n in names if "rpe_attention_kernel" in n)
+    print(f"[sinkhorn tol] forward at 4096, Sinkhorn kernel launches: default "
+          f"{launches['default']['sinkhorn']}, pallas with tol "
+          f"{launches['pallas tol']['sinkhorn']} (warned: {caught[1]}), xla with tol "
+          f"{launches['xla tol']['sinkhorn']}; trace() of the default forward: {len(files)} "
+          f"file(s), region roitr_forward {'roitr_forward' in names}, kernels named "
+          f"{rpe[:1]}; {time.time() - t_phase:.1f} s in all", flush=True)
+    if [launches[n]["sinkhorn"] for n in launches] != [1, 1, 0] or caught != [False, True, False]:
+        fail(f"[sinkhorn tol] launches {launches}, warnings {caught}")
+    if len(files) != 1 or "roitr_forward" not in names or not rpe:
+        fail("[sinkhorn tol] the trace does not name the annotated region and the RPE kernel")
+
+
+# the cuts of [cli]'s copies of the repo's configs: the synthetic split's
+# paths, the weights, and the run's length
+CLI_TRAIN_CUTS = dict(max_epoch=1, training_max_iter=2, val_max_iter=2, num_workers=2)
+
+
+def _config_copy(src, dst, **overrides):
+    """A copy of a repo config (two-level YAML) with `overrides` set in the
+    sections that hold them (a new key under data); nothing else changed."""
+    import yaml
+
+    with open(src) as f:
+        raw = yaml.safe_load(f)
+    left = dict(overrides)
+    for body in raw.values():
+        if isinstance(body, dict):
+            for key in [k for k in left if k in body]:
+                body[key] = left.pop(key)
+    raw["data"].update(left)
+    with open(dst, "w") as f:
+        yaml.safe_dump(raw, f)
+    return dst
+
+
+def _reference_pth(state_dict, path):
+    """A reference RoITr checkpoint of these weights, as the reference's
+    trainer saves one: every key of tests/fixtures/ref_state_dict_keys.json
+    (seeded values for those the model never reads), a DDP `module.`
+    prefix, under "state_dict"."""
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "ref_state_dict_keys.json")
+    with open(fixture) as f:
+        shapes = json.load(f)
+    if not set(state_dict) <= set(shapes):
+        fail(f"port keys outside the reference's: {sorted(set(state_dict) - set(shapes))[:5]}")
+    gen = torch.Generator().manual_seed(0)
+    torch.save({"state_dict": {"module." + key: (state_dict[key] if key in state_dict
+                                                 else torch.randn(shape, generator=gen)).cpu()
+                               for key, shape in shapes.items()}}, path)
+
+
+def phase_cli(rng, main):
+    """The command line, `python -m roitr_torch`, at full 3DMatch width on a
+    synthetic split of 3 pairs of 20k-30k points in the reference layout:
+    train mode in this process from a copy of configs/train/tdmatch.yaml
+    (CLI_TRAIN_CUTS; 2 train steps, 2 validation steps, launches exact and
+    counted into the kernels line, each step timed, checkpoints written),
+    then test mode in a subprocess from a copy of configs/test/tdmatch.yaml
+    (knn_method approx, host pyramids, num_workers 2) whose `pretrain` is
+    the trained weights as a reference RoITr `.pth`; its dumps against an
+    in-process Tester's from the same file, by sha256, whose launches are
+    the forward's without FPS."""
+    import hashlib
+
+    from roitr_torch import main as cli
+    from roitr_torch.config import load_config
+    from roitr_torch.eval.tester import Tester
+    from roitr_torch.kernels import FORWARD_KERNELS, launch_counts, reset_launch_counts
+    from roitr_torch.train import trainer as trainer_module
+    from roitr_torch.train.checkpoint import load_model_state
+
+    t_phase = time.time()
+    here = os.path.dirname(os.path.abspath(__file__))
+    sizes = [(int(a), int(b)) for a, b in rng.randint(20000, 30001, size=(3, 2))]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            root, info = _write_tdmatch_split(rng, sizes, tmp)
+            train_yaml = _config_copy(os.path.join(here, "configs", "train", "tdmatch.yaml"),
+                                      os.path.join(tmp, "train.yaml"), root=root,
+                                      train_info=info, val_info=info, **CLI_TRAIN_CUTS)
+            step_ms = []
+            real_step = trainer_module.train_step
+
+            def timed_step(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res = real_step(*args, **kw)
+                torch.cuda.synchronize()
+                step_ms.append((time.time() - t0) * 1e3)
+                return res
+
+            trainer_module.train_step = timed_step
+            try:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.time()
+                trainer = cli.main([train_yaml])
+                torch.cuda.synchronize()
+                train_wall = time.time() - t0
+            finally:
+                trainer_module.train_step = real_step
+            train_launches = dict(launch_counts)
+            _count_main(train_launches, main)
+            ckpts = sorted(os.listdir(trainer.ckpt_dir))
+            sources = os.path.isfile(os.path.join(trainer.snapshot_dir, "src", "roitr_torch",
+                                                  "main.py"))
+            print(f"[cli] python -m roitr_torch {train_yaml} (configs/train/tdmatch.yaml with "
+                  f"the split's paths and {CLI_TRAIN_CUTS}): {trainer.step} train steps "
+                  f"({', '.join(f'{t:.1f}' for t in step_ms)} ms a step, the data included) "
+                  f"+ {trainer.cfg.val_max_iter} validation steps in {train_wall:.1f} s (the "
+                  f"pools' start included); checkpoints {ckpts}; sources snapshot {sources}; "
+                  f"launches {train_launches}", flush=True)
+            want = {k: 2 * TRAIN_STEP[k] + 2 * VAL_STEP[k] for k in TRAIN_STEP}
+            if trainer.step != 2 or train_launches != want or not sources or not {
+                    "model_0.pth", "model_best_loss.pth"} <= set(ckpts):
+                fail(f"[cli] train mode: {trainer.step} steps, launches {train_launches} "
+                     f"(expected {want}), checkpoints {ckpts}")
+
+            ref = os.path.join(tmp, "model_3dmatch.pth")
+            _reference_pth(load_model_state(os.path.join(trainer.ckpt_dir, "model_0.pth")), ref)
+            test_yaml = _config_copy(os.path.join(here, "configs", "test", "tdmatch.yaml"),
+                                     os.path.join(tmp, "test.yaml"), root=root, test_info=info,
+                                     pretrain=ref, num_workers=2)
+            env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            t0 = time.time()
+            res = subprocess.run([sys.executable, "-m", "roitr_torch", test_yaml], cwd=tmp,
+                                 env=env, capture_output=True, text=True, timeout=600)
+            sub_wall = time.time() - t0
+            if res.returncode != 0:
+                fail(f"[cli] python -m roitr_torch {test_yaml} exited {res.returncode}: "
+                     f"{res.stderr[-3000:]}")
+            said = [line for line in res.stdout.splitlines() if "s/pair" in line]
+            cfg = load_config(test_yaml)
+            dump_dir = os.path.join(tmp, "snapshot", cfg.exp_dir, cfg.benchmark)
+            print(f"[cli] python -m roitr_torch {test_yaml} (configs/test/tdmatch.yaml with the "
+                  f"split's paths, a reference .pth as pretrain, num_workers 2; knn_method "
+                  f"{cfg.knn_method}, host_pyramid {cfg.host_pyramid}) in a subprocess: "
+                  f"{sub_wall:.1f} s (interpreter, pool and 3 pairs); it said {said}", flush=True)
+
+            tester = Tester(cfg.replace(exp_dir="cli_in_process"),
+                            state_dict=load_model_state(ref))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.time()
+            tester.test()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(launch_counts)
+            digest = lambda d: [hashlib.sha256(open(os.path.join(d, f"{i}.pth"), "rb").read())
+                                .hexdigest() for i in range(len(sizes))]
+            same = digest(dump_dir) == digest(tester.snapshot_dir)
+        finally:
+            os.chdir(cwd)
+    print(f"[cli] in-process Tester from the same .pth: {wall / len(sizes):.3f} s/pair over "
+          f"{len(sizes)} pairs (the pool's start included); launches {launches}; dumps equal to "
+          f"the subprocess's by sha256: {same}; {time.time() - t_phase:.1f} s in all", flush=True)
+    want = {k: v * len(sizes) for k, v in FORWARD_LAUNCHES.items()}
+    want["fps"] = 0  # host pyramids
+    if {k: launches[k] for k in FORWARD_KERNELS} != want or not same:
+        fail(f"[cli] Tester launches {launches} (expected {want}), dumps equal {same}")
+
+
 SOURCES = {
     "fps": ("roitr_torch/csrc/fps.cu", "roitr_tpu/ops/pallas/fps_kernel.py:47"),
     "geo_embedding": ("roitr_torch/csrc/geo_embedding.cu",
@@ -2782,6 +3041,8 @@ def main() -> int:
     phase_workers(rng, later)
     phase_ddp(rng, later)
     phase_registration(rng)
+    phase_sinkhorn_tol(rng)
+    phase_cli(rng, later)
 
     kernels = []
     for name, row in rows.items():
@@ -2792,8 +3053,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             # the training runs: [training], [packed training], the 4DMatch
             # Trainer of [4dmatch], the train steps of [bf16] and [remat],
-            # the Trainer of [workers] and every rank's steps and Trainers
-            # of [ddp]
+            # the Trainer of [workers], every rank's steps and Trainers of
+            # [ddp], and the train mode of [cli]
             "launches": (launches[name] + packed_launches[name] + fd_launches[name]
                          + later.get(name, 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],

@@ -104,16 +104,20 @@ class Config:
     fine_matching_use_global_score: bool = False
     fine_matching_correspondence_threshold: int = 3
     sinkhorn_iters: int = 100
-    # "pallas" only in the port: the hand-written Sinkhorn kernel on the
-    # card (its plain torch loop on the CPU); "xla" raises. The name is
-    # kept so configs of the JAX package load unchanged.
+    # "pallas" (default): the hand-written Sinkhorn kernel on the card, its
+    # plain torch loop on the CPU; "xla": the plain loop everywhere. The
+    # names are the JAX package's, so its configs load unchanged.
     sinkhorn_backend: str = "pallas"
-    # > 0 asks for a convergence early-exit; the kernel path always runs
-    # the fixed sinkhorn_iters (as the JAX package's kernel path does) and
-    # warns. 0.0 = fixed-count iteration (reference model/modules.py:55).
+    # > 0 stops inference's Sinkhorn loop once the largest row-potential
+    # update is <= tol (capped at sinkhorn_iters) wherever the kernel does
+    # not run: on the CPU, under "xla", for a patch the kernel refuses. The
+    # kernel runs the fixed count and warns, as the JAX package's kernel
+    # path does; training keeps the fixed count. 0.0 = fixed-count
+    # iteration (reference model/modules.py:55).
     sinkhorn_tol: float = 0.0
-    # backbone neighborhood search: "exact" only in the port ("approx" is
-    # a TPU-only operator and raises)
+    # backbone neighborhood search: "exact", or "approx" (the JAX package's
+    # TPU approx_min_k, which XLA computes exactly off the TPU): the port
+    # runs the exact search for both
     knn_method: str = "exact"
     # recompute the backbone's local attention in the backward instead of
     # keeping its activations (the JAX package's memory lever)

@@ -216,7 +216,7 @@ def benchmark_registration_rotated(
     return result
 
 
-def main():
+def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser()
@@ -230,7 +230,7 @@ def main():
         "--ransac_backend", default="torch", choices=("torch", "numpy"),
         help="'torch' runs each pair's hypotheses at once on --device; 'numpy' on the host")
     parser.add_argument("--device", default="cuda", help="the torch backend's device")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     if args.rotated:
         res = benchmark_registration_rotated(

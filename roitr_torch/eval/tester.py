@@ -44,7 +44,7 @@ from roitr_torch.data.worker_pool import WorkerPool
 from roitr_torch.models.roitr import RoITr, resolve_device
 from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
 from roitr_torch.parallel.distributed import barrier, init_distributed, local_world, rank, world
-from roitr_torch.train.checkpoint import load_checkpoint
+from roitr_torch.train.checkpoint import load_model_state
 from roitr_torch.train.trainer import Trainer
 from roitr_torch.utils.packing import to_device
 
@@ -196,7 +196,8 @@ def list_dumps(desc_dir: str) -> List[str]:
 class Tester:
     """Test-split inference loop writing one dump a pair (reference
     lib/tester.py:19-69). `state_dict` overrides `cfg.pretrain` (a port
-    checkpoint, train/checkpoint.py, or a bare state_dict). With
+    checkpoint, train/checkpoint.py, a reference RoITr `.pth` or a bare
+    state_dict: `load_model_state`). With
     `cfg.device_prep` the dataset ships zero normals and they are estimated
     on the device before the forward. With `cfg.packed_batch`, batches of
     `cfg.batch_size` same-bucket pairs run as one packed forward; that needs
@@ -221,8 +222,7 @@ class Tester:
         if state_dict is None:
             if not cfg.pretrain:
                 raise ValueError("Tester needs cfg.pretrain or an explicit state_dict")
-            ckpt = load_checkpoint(cfg.pretrain)
-            state_dict = ckpt["model"] if "model" in ckpt else ckpt
+            state_dict = load_model_state(cfg.pretrain)
         self.model = RoITr(cfg, device=self.device)
         self.model.load_state_dict(state_dict)
         self.model.eval()

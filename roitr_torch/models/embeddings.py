@@ -33,16 +33,26 @@ def sinusoidal_embedding(indices: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 class PPFEmbedding(nn.Module):
-    """Local-mode PPF embedding: one linear lift of the raw 4-d PPF
-    (reference PPFStructualEmbedding, :65-91), computing in `dtype` (the
-    JAX package's `embedding_proj`); the PPF itself stays fp32."""
+    """PPF embedding (reference PPFStructualEmbedding, :65-91), computing
+    in `dtype` (the JAX package's `embedding_proj`); the PPF itself stays
+    fp32. Local mode: one linear lift of the raw 4-d PPF. Global mode
+    (models/ppf_transformer.py): a hidden_dim / 4 sinusoidal embedding of
+    each PPF channel, concatenated, projected and L2-normalised."""
 
-    def __init__(self, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, hidden_dim: int, dtype=torch.float32, mode: str = "local"):
         super().__init__()
-        self.proj = Linear(4, hidden_dim, dtype)
+        if mode not in ("local", "global"):
+            raise ValueError(f"unknown PPF embedding mode {mode!r}")
+        self.mode = mode
+        self.proj = Linear(4 if mode == "local" else 4 * (hidden_dim // 4), hidden_dim, dtype)
 
     def forward(self, ppf: torch.Tensor) -> torch.Tensor:
-        return self.proj(ppf)
+        if self.mode == "local":
+            return self.proj(ppf)
+        sub = self.proj.in_features // 4
+        emb = self.proj(torch.cat([sinusoidal_embedding(ppf[..., i], sub) for i in range(4)],
+                                  dim=-1))
+        return emb / torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True), min=1e-12)
 
 
 class GeometricStructureEmbedding(nn.Module):

@@ -34,7 +34,8 @@ from roitr_torch.ops.partition import (
     node_occlusion_score,
     point_to_node_partition,
 )
-from roitr_torch.ops.sinkhorn import log_sinkhorn_ot
+from roitr_torch.ops.neighbors import check_knn_method
+from roitr_torch.ops.sinkhorn import SINKHORN_BACKENDS, log_sinkhorn_ot
 
 
 class PairInputs(NamedTuple):
@@ -113,12 +114,10 @@ class RoITr(nn.Module):
         # cfg.device_prep, host_pyramid and packed_batch are read by the
         # callers (datasets, Tester, Matcher), which attach pyramids, pack
         # pairs and run ops/pyramid.py's device prep before the forward
-        if cfg.knn_method != "exact":
-            raise NotImplementedError(f"knn_method {cfg.knn_method!r}: the port has exact kNN")
-        if cfg.sinkhorn_backend != "pallas":
-            raise NotImplementedError(
-                f"sinkhorn_backend {cfg.sinkhorn_backend!r}: the port runs the Sinkhorn kernel "
-                "on the card and its plain loop on the CPU")
+        check_knn_method(cfg.knn_method)
+        if cfg.sinkhorn_backend not in SINKHORN_BACKENDS:
+            raise ValueError(f"sinkhorn_backend must be one of {SINKHORN_BACKENDS}, got "
+                             f"{cfg.sinkhorn_backend!r}")
         if cfg.compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}, got "
                              f"{cfg.compute_dtype!r}")
@@ -279,13 +278,16 @@ class RoITr(nn.Module):
         o = stage.outputs
         tgt_knn_points, src_knn_points = o["tgt_node_corr_knn_points"], o["src_node_corr_knn_points"]
         tgt_knn_masks, src_knn_masks = o["tgt_node_corr_knn_masks"], o["src_node_corr_knn_masks"]
-        # optimal transport (reference :150-153); rows: tgt, cols: src
+        # optimal transport (reference :150-153); rows: tgt, cols: src. The
+        # convergence exit is for inference only: training keeps the
+        # reference's fixed count, as JAX's does
         ch = stage.src_knn_feats.shape[-1]
         matching_scores = torch.einsum("pnc,pmc->pnm", stage.tgt_knn_feats,
                                        stage.src_knn_feats) / ch ** 0.5
         matching_scores = log_sinkhorn_ot(
             matching_scores, tgt_knn_masks, src_knn_masks, self.optimal_transport.alpha,
-            num_iter=cfg.sinkhorn_iters, tol=cfg.sinkhorn_tol, differentiable=train)
+            num_iter=cfg.sinkhorn_iters, tol=0.0 if train else cfg.sinkhorn_tol,
+            differentiable=train, backend=cfg.sinkhorn_backend)
 
         # fine matching (reference :158-169), no gradient; the exact path in
         # training, as the JAX train step takes it

@@ -1,11 +1,17 @@
 """Masked k-nearest-neighbor search, gathering and 3-NN interpolation.
 
-Counterpart of roitr_tpu/ops/neighbors.py (exact search only). Distances
-come in query tiles, so the (Q, N) matrix never exists whole: at the
-32768 bucket it would be 4 GB.
+Counterpart of roitr_tpu/ops/neighbors.py. Distances come in query tiles,
+so the (Q, N) matrix never exists whole: at the 32768 bucket it would be
+4 GB. The search is exact. The JAX package's `method="approx"` is
+`jax.lax.approx_min_k`, a TPU operator that XLA computes exactly on every
+other backend (recall 1.0); the port takes that meaning
+(`check_knn_method`).
 """
 
 from __future__ import annotations
+
+import functools
+import logging
 
 import torch
 
@@ -15,6 +21,24 @@ from roitr_torch.ops.topk import topk
 _INF = 1e10
 # distance entries per query tile (fp32 distances + int64 sort keys)
 _TILE_ELEMS = 1 << 25
+
+KNN_METHODS = ("exact", "approx")
+
+
+def check_knn_method(method: str) -> None:
+    """Accept the config's `knn_method`: "exact", or "approx", which runs
+    the same exact search (logged once); raise for anything else."""
+    if method not in KNN_METHODS:
+        raise ValueError(f"knn_method must be one of {KNN_METHODS}, got {method!r}")
+    if method == "approx":
+        _note_approx()
+
+
+@functools.cache
+def _note_approx() -> None:
+    logging.getLogger("roitr_torch").info(
+        "knn_method 'approx': the port runs the exact kNN, recall 1.0, as XLA computes "
+        "approx_min_k off the TPU")
 
 
 def masked_knn(queries: torch.Tensor, keys: torch.Tensor, key_count, k: int,

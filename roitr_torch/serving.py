@@ -6,6 +6,7 @@ estimation + view-point redirect + bucket padding, and with
 the fixed-capacity outputs trimmed back to ragged numpy.
 
     matcher = Matcher(cfg, state_dict)          # device="cuda" by default
+    matcher = Matcher.from_checkpoint("model_best_loss.pth", cfg)
     out = matcher.match(src_xyz, tgt_xyz)       # (n, 3) float numpy each
     out["src_corr_pts"], out["tgt_corr_pts"], out["confidence"]
     outs = matcher.match_batch([(src, tgt), ...], batch_size=8)
@@ -36,6 +37,7 @@ from roitr_torch.data.preprocess import (
 from roitr_torch.data.pyramid import build_cloud_pyramid, pyramid_to_torch
 from roitr_torch.models.roitr import PairInputs, RoITr
 from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
+from roitr_torch.train.checkpoint import load_model_state
 from roitr_torch.utils.packing import to_device
 
 # correspondence rows copied to the host: src xyz 0:3 | tgt xyz 3:6 |
@@ -76,6 +78,13 @@ class Matcher:
         self.model.load_state_dict(state_dict)
         self.model.eval()
         self.device = self.model.device
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Config, device="cuda", **kw) -> "Matcher":
+        """A Matcher with the weights of a port checkpoint, a reference
+        RoITr `.pth` or a bare state_dict (train/checkpoint.py
+        `load_model_state`)."""
+        return cls(cfg, load_model_state(path), device=device, **kw)
 
     def _cap(self, src_pcd, tgt_pcd, src_normals, tgt_normals):
         """Cap each cloud to the dataset limit and the largest bucket by a

@@ -5,7 +5,9 @@ lib/trainer.py:65-130, 309-330): one file per epoch and one per best
 metric. The port's format is its own, one `torch.save` file holding the
 model's state_dict, the optimizer's state (moments, schedule position,
 `iter_size` accumulation), the step, the epoch and the best metrics; it
-does not read the JAX package's orbax directories.
+does not read the JAX package's orbax directories. `load_model_state`
+reads the model's weights from such a file, a bare state_dict or a
+reference RoITr `.pth`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 from typing import Any, Dict
 
 import torch
+
+from roitr_torch.utils.convert import load_reference_state_dict
 
 BEST_METRICS = ("loss", "c_loss", "f_loss", "o_loss", "PIR", "IR")
 # metrics where larger is better (reference trainer.py:317-330)
@@ -33,6 +37,18 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer, step: int, epo
 
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
     return torch.load(path, map_location=map_location, weights_only=False)
+
+
+def load_model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The model's state_dict from a port checkpoint (`{"model": ...}`), a
+    reference RoITr `.pth` (`{"state_dict": ...}`, DDP `module.` prefixes
+    and the entries the model never reads, as the reference's trainer
+    saves it; the JAX package's `load_torch_checkpoint`) or a bare
+    state_dict, on the CPU."""
+    ckpt = load_checkpoint(path)
+    if "model" in ckpt:
+        return ckpt["model"]
+    return load_reference_state_dict(ckpt.get("state_dict", ckpt))
 
 
 def init_best_metrics() -> Dict[str, float]:

@@ -7,7 +7,8 @@ every `nn.Module` of this package yields. Dense kernels are transposed
 (flax (in, out) -> torch (out, in)), LayerNorm `scale` becomes `weight`,
 the raw `proj_p_kernel`/`proj_vp_kernel` of the factored global self
 attention become `proj_p.weight`/`proj_vp.weight`, and `ot_alpha` becomes
-`optimal_transport.alpha`.
+`optimal_transport.alpha`. `ppf_params_to_state_dict` does the same for
+the alternative PPF transformer (models/ppf_transformer.py).
 
 Keys the reference checkpoint carries but the model never reads
 (`OT.*`, `backbone.occ_proj.*`, `*.div_term`) are matched by
@@ -125,6 +126,19 @@ def _entries(transformer_architecture: Sequence[str],
     yield (), "ot_alpha", "optimal_transport.alpha", "leaf"
 
 
+def _to_state_dict(params: Dict[str, Any], entries) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf, key, kind in entries:
+        node = params
+        for p in path:
+            node = node[p]
+        value = np.array(node[leaf], np.float32)  # a writable copy
+        if kind == "kernel":
+            value = value.T
+        sd[key] = torch.from_numpy(np.array(value, order="C"))  # keeps 0-d leaves 0-d
+    return sd
+
+
 def params_to_state_dict(
     params: Dict[str, Any],
     transformer_architecture: Sequence[str] = ("self", "cross", "self", "cross", "self", "cross"),
@@ -133,16 +147,43 @@ def params_to_state_dict(
     """JAX params (nested dict of arrays) -> port state_dict (CPU tensors).
     Any pytree of the params' structure maps the same way, such as the
     gradients of `jax.value_and_grad`."""
-    sd: Dict[str, torch.Tensor] = {}
-    for path, leaf, key, kind in _entries(transformer_architecture, enc_blocks):
-        node = params
-        for p in path:
-            node = node[p]
-        value = np.array(node[leaf], np.float32)  # a writable copy
-        if kind == "kernel":
-            value = value.T
-        sd[key] = torch.from_numpy(np.ascontiguousarray(value))
-    return sd
+    return _to_state_dict(params, _entries(transformer_architecture, enc_blocks))
+
+
+def _ppf_entries(blocks: Sequence[str], with_cross_pos_embed: bool) -> Iterator[_Entry]:
+    """roitr_tpu/models/ppf_transformer.py's params -> the port's
+    models/ppf_transformer.py keys."""
+    yield from _dense(("embedding", "proj"), "embedding.proj")
+    yield from _dense(("in_proj",), "in_proj")
+    for i, block in enumerate(blocks):
+        lp = (f"layers_{i}",)
+        tk = f"transformer.layers.{i}"
+        att = tk + ".attention.attention"
+        if block == "self":
+            for name in ("proj_q", "proj_k", "proj_v"):
+                yield from _dense(lp + (name,), f"{att}.{name}")
+            for name in ("proj_p", "proj_vp"):
+                yield lp, f"{name}_kernel", f"{att}.{name}.weight", "kernel"
+                yield lp, f"{name}_bias", f"{att}.{name}.bias", "leaf"
+        elif block == "cross":
+            names = ("proj_q", "proj_k", "proj_v")
+            if with_cross_pos_embed:
+                names += ("proj_pq", "proj_pk", "proj_vk")
+            for name in names:
+                yield from _dense(lp + ("attention", name), f"{att}.{name}")
+        else:
+            raise ValueError(f"unknown block type {block!r}")
+        yield from _dense(lp + ("linear",), tk + ".attention.linear")
+        yield from _layernorm(lp + ("norm",), tk + ".attention.norm")
+        yield from _ffn(lp + ("output",), tk + ".output")
+    yield from _dense(("out_proj",), "out_proj")
+
+
+def ppf_params_to_state_dict(params: Dict[str, Any], blocks: Sequence[str],
+                             with_cross_pos_embed: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX `PPFTransformer` params -> the state_dict of the port's
+    models/ppf_transformer.py `PPFTransformer` of the same blocks."""
+    return _to_state_dict(params, _ppf_entries(blocks, with_cross_pos_embed))
 
 
 def load_reference_state_dict(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:

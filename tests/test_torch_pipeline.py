@@ -30,6 +30,7 @@ from torch_parity import (  # noqa: F401 (one_torch_thread: an autouse fixture)
     one_torch_thread,
     pair_arrays,
     port_and_params,
+    same_correspondences,
     torch_pair,
 )
 
@@ -37,8 +38,8 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 BUCKET = dict(bucket=512, n_valid=480, m_valid=400)
 
 
-def _run_both(storage: str, seed: int = 5):
-    tcfg, model, jcfg, params = port_and_params(0, geo_embedding_storage=storage)
+def _run_both(storage: str, seed: int = 5, **cfg_kw):
+    tcfg, model, jcfg, params = port_and_params(0, geo_embedding_storage=storage, **cfg_kw)
     arr = pair_arrays(seed, **BUCKET)
     with torch.no_grad():
         got = {k: v.numpy() for k, v in model(torch_pair(arr)).items()}
@@ -116,6 +117,40 @@ def test_fine_correspondences_match_jax(fp32_outputs):
     np.testing.assert_allclose(g[:, 6], w[:, 6], **TOL)
 
 
+def test_forward_with_sinkhorn_tol_matches_jax(monkeypatch):
+    """sinkhorn_tol > 0 at inference: JAX's CPU forward takes its
+    while_loop exit (the Pallas kernel runs only on a TPU), and so does the
+    port's CPU forward, stopping before sinkhorn_iters (at 53 of 100 here;
+    an exit one iteration apart would move the OT scores by about tol, far
+    past their tolerance); every output matches as in the fixed-count
+    forward above, the kept fine correspondences as sets up to near-ties."""
+    from roitr_torch.ops import sinkhorn as ops_sinkhorn
+
+    iters = []
+    real = ops_sinkhorn.sinkhorn_early_exit
+
+    def spy(*args):
+        out, n = real(*args)
+        iters.append(n)
+        return out, n
+
+    monkeypatch.setattr(ops_sinkhorn, "sinkhorn_early_exit", spy)
+    got, want = _run_both("fp32", sinkhorn_iters=100, sinkhorn_tol=1e-3)
+    assert len(iters) == 1 and 1 < iters[0] < 100, iters
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if key in ("tgt_corr_points", "src_corr_points", "corr_scores", "corr_masks"):
+            continue
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[key], w, err_msg=key, **TOL)
+        else:
+            np.testing.assert_array_equal(got[key].astype(np.int64), w.astype(np.int64), key)
+    # 53 iterations leave a sharper plan than the fixed test's 10, whose
+    # top-k near-ties round either way in a few rows (torch_parity)
+    same_correspondences(*(tuple(o[k][o["corr_masks"]] for k in (
+        "src_corr_points", "tgt_corr_points", "corr_scores")) for o in (got, want)), "tol")
+
+
 def test_bf16_storage_node_descriptors_within_budget():
     got, want = _run_both("bf16")
     for side in ("src", "tgt"):
@@ -183,30 +218,34 @@ def test_later_slices_raise(option):
 
 
 @pytest.mark.parametrize("option", [dict(knn_method="approx"), dict(sinkhorn_backend="xla"),
-                                    dict(compute_dtype="float16"), dict(remat_local=True)])
+                                    dict(compute_dtype="float16"), dict(remat_local=True),
+                                    dict(knn_method="ball"), dict(sinkhorn_backend="triton")])
 def test_unported_options_raise(option):
-    """Options that would take another path than the port's are refused
-    when the model is built, not followed silently: approximate kNN (a TPU
-    operator), the XLA Sinkhorn, and a compute dtype other than float32
-    and bfloat16 (JAX's Config quietly computes those in float32).
-    remat_local, once refused here, is ported: its forward equals the plain
-    model's bit for bit, with a graph (the checkpointed transformers) and
-    without."""
+    """Values no path takes are refused when the model is built, not
+    followed silently: a compute dtype other than float32 and bfloat16
+    (JAX's Config quietly computes those in float32), a kNN method or a
+    Sinkhorn backend the JAX package does not name. The options once
+    refused here are ported, and on the CPU their forward equals the
+    default model's bit for bit: knn_method "approx" (the exact search,
+    as XLA computes approx_min_k off the TPU), sinkhorn_backend "xla" (the
+    plain loop, which the CPU runs under "pallas" too) and remat_local,
+    with a graph (the checkpointed transformers) and without."""
     from roitr_torch.config import Config
     from roitr_torch.models.roitr import RoITr
 
-    if option == dict(remat_local=True):
+    if option in (dict(knn_method="approx"), dict(sinkhorn_backend="xla"),
+                  dict(remat_local=True)):
         _, plain, _, _ = port_and_params(0)
-        _, remat, _, _ = port_and_params(0, **option)
+        _, other, _, _ = port_and_params(0, **option)
         pair = torch_pair(pair_arrays(1, 128, 112, 96))
         with torch.no_grad():
             want = plain(pair)
-            got_no_graph = remat(pair)
-        got = remat(pair)
+            got_no_graph = other(pair)
+        got = other(pair)
         for key, w in want.items():
             assert torch.equal(got[key].detach(), w) and torch.equal(got_no_graph[key], w), key
         return
-    with pytest.raises((NotImplementedError, ValueError), match=next(iter(option))):
+    with pytest.raises(ValueError, match=next(iter(option))):
         RoITr(Config(benchmark="3DMatch", **option), device="cpu")
 
 
