@@ -1,0 +1,10 @@
+"""rpe_attention_bwd_roofline.train (%): the rpe_attention_bwd kernel's bound over its mean device time a launch, training."""
+
+from portbench import readers  # noqa: F401
+
+NAME = "rpe_attention_bwd_roofline.train"
+UNIT = "%"
+
+
+def read(run):
+    return readers.kernel_roofline_pct(run, "rpe_attention_bwd")
