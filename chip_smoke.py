@@ -2770,7 +2770,7 @@ def phase_sinkhorn_tol(rng):
     from roitr_torch.kernels.sinkhorn_kernel import sinkhorn_iterate
     from roitr_torch.models.roitr import RoITr
     from roitr_torch.ops.sinkhorn import log_sinkhorn_ot, sinkhorn_early_exit, sinkhorn_inputs
-    from roitr_torch.utils.profiling import annotate, trace
+    from roitr_torch.utils.profiling import span, trace
 
     t_phase = time.time()
     p, k, num_iter, tol = 256, 64, 100, 1e-3
@@ -2820,7 +2820,7 @@ def phase_sinkhorn_tol(rng):
                 warnings.simplefilter("always")
                 if name == "default":
                     with trace(os.path.join(tmp, "profiles")) as log_dir:
-                        with annotate("roitr_forward"):
+                        with span("roitr_forward"):
                             out = model(pair)
                         torch.cuda.synchronize()
                 else:

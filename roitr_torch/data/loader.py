@@ -32,6 +32,7 @@ from roitr_torch.data.pyramid import pyramid_to_torch
 from roitr_torch.data.worker_pool import WorkerPool
 from roitr_torch.models.roitr import PairInputs
 from roitr_torch.utils.packing import to_device
+from roitr_torch.utils.profiling import span
 
 Batch = Union[PairInputs, List[PairInputs]]
 
@@ -148,7 +149,8 @@ def iterate_batches(dataset, batch_size: int = 1, shuffle: bool = False, seed: i
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("loader.wait", device=False):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, BaseException):

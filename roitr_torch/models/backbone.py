@@ -41,6 +41,7 @@ from roitr_torch.models.transformer import GeometricTransformer
 from roitr_torch.ops.fps import furthest_point_sampling, num_valid_samples
 from roitr_torch.ops.geometry import calc_ppf, index_valid, prefix_mask
 from roitr_torch.ops.neighbors import masked_knn, three_nn_interpolate
+from roitr_torch.utils.profiling import span
 
 
 class Level(NamedTuple):
@@ -288,35 +289,41 @@ class RIPointTransformer(nn.Module):
         src_point_feats, src_node_count, tgt_nodes, tgt_node_feats,
         tgt_points, tgt_point_feats, tgt_node_count) like the JAX backbone."""
         packed = _is_packed(src_count)
-        s_fps = t_fps = [None] * 4
-        if (not packed and src_pyramid is None and tgt_pyramid is None
-                and src_points.shape == tgt_points.shape):
-            s_fps, t_fps = _device_fps_pyramids(src_points, src_count, tgt_points, tgt_count,
-                                                self.strides)
-        s_levels = self.encode(src_points, src_normals, src_feats, src_count, s_fps, src_pyramid)
-        t_levels = self.encode(tgt_points, tgt_normals, tgt_feats, tgt_count, t_fps, tgt_pyramid)
+        dev = src_points.device
+        with span("model.local", dev):
+            s_fps = t_fps = [None] * 4
+            if (not packed and src_pyramid is None and tgt_pyramid is None
+                    and src_points.shape == tgt_points.shape):
+                s_fps, t_fps = _device_fps_pyramids(src_points, src_count, tgt_points, tgt_count,
+                                                    self.strides)
+            s_levels = self.encode(src_points, src_normals, src_feats, src_count, s_fps,
+                                   src_pyramid)
+            t_levels = self.encode(tgt_points, tgt_normals, tgt_feats, tgt_count, t_fps,
+                                   tgt_pyramid)
         s4, t4 = s_levels[3], t_levels[3]
-        s_mask4 = prefix_mask(s4.points.shape[0], s4.count, device=s4.points.device)
-        t_mask4 = prefix_mask(t4.points.shape[0], t4.count, device=t4.points.device)
-        if packed:
-            # per-pair coarse transformer on free (B, m4, ...) views of the
-            # aligned segments: one embedding launch and one RPE attention
-            # launch a layer cover all B pairs
-            b = src_count.shape[0]
-            view = lambda a: a.reshape(b, a.shape[0] // b, *a.shape[1:])
-            s_gx4, t_gx4 = self.global_transformer(
-                view(s4.points), view(t4.points), view(s4.feats), view(t4.feats),
-                ref_count=s4.count, src_count=t4.count, ref_masks=view(s_mask4),
-                src_masks=view(t_mask4))
-            s_gx4, t_gx4 = s_gx4.flatten(0, 1), t_gx4.flatten(0, 1)
-        else:
-            s_gx4, t_gx4 = self.global_transformer(
-                s4.points, t4.points, s4.feats, t4.feats, ref_count=s4.count, src_count=t4.count,
-                ref_masks=s_mask4, src_masks=t_mask4)
-        s_x1 = self.decode(s_levels, src_pyramid)
-        t_x1 = self.decode(t_levels, tgt_pyramid)
-        # chain FPS indices back to raw ordering (reference model.py:233-235)
-        idx4_in_1 = s_levels[1].down_idx[s_levels[2].down_idx][s_levels[3].down_idx]
-        s_nodes = src_deformed[idx4_in_1]
+        with span("model.transformer", dev):
+            s_mask4 = prefix_mask(s4.points.shape[0], s4.count, device=dev)
+            t_mask4 = prefix_mask(t4.points.shape[0], t4.count, device=dev)
+            if packed:
+                # per-pair coarse transformer on free (B, m4, ...) views of the
+                # aligned segments: one embedding launch and one RPE attention
+                # launch a layer cover all B pairs
+                b = src_count.shape[0]
+                view = lambda a: a.reshape(b, a.shape[0] // b, *a.shape[1:])
+                s_gx4, t_gx4 = self.global_transformer(
+                    view(s4.points), view(t4.points), view(s4.feats), view(t4.feats),
+                    ref_count=s4.count, src_count=t4.count, ref_masks=view(s_mask4),
+                    src_masks=view(t_mask4))
+                s_gx4, t_gx4 = s_gx4.flatten(0, 1), t_gx4.flatten(0, 1)
+            else:
+                s_gx4, t_gx4 = self.global_transformer(
+                    s4.points, t4.points, s4.feats, t4.feats, ref_count=s4.count,
+                    src_count=t4.count, ref_masks=s_mask4, src_masks=t_mask4)
+        with span("model.local", dev):
+            s_x1 = self.decode(s_levels, src_pyramid)
+            t_x1 = self.decode(t_levels, tgt_pyramid)
+            # chain FPS indices back to raw ordering (reference model.py:233-235)
+            idx4_in_1 = s_levels[1].down_idx[s_levels[2].down_idx][s_levels[3].down_idx]
+            s_nodes = src_deformed[idx4_in_1]
         return (s_nodes, s_gx4, src_deformed, s_x1, s4.count, t4.points, t_gx4,
                 t_levels[0].points, t_x1, t4.count)

@@ -36,6 +36,7 @@ from roitr_torch.ops.partition import (
 )
 from roitr_torch.ops.neighbors import check_knn_method
 from roitr_torch.ops.sinkhorn import SINKHORN_BACKENDS, log_sinkhorn_ot
+from roitr_torch.utils.profiling import span
 
 
 class PairInputs(NamedTuple):
@@ -152,22 +153,28 @@ class RoITr(nn.Module):
             raise ValueError("with_gt=True needs pair.rot and pair.trans")
         if pair.src_count.ndim == 1:
             return self._forward_packed(pair, train=train, with_gt=with_gt, generator=generator)
-        out = self._backbone_outputs(pair)
-        stage = self._pair_stage(out, pair.rot, pair.trans, train, with_gt, generator)
-        out.update(stage.outputs)
-        out.update(self._ot_and_fine(stage, train))
-        return out
+        feats = self._backbone(pair)
+        with span("model.matching", self.device):
+            out = self._backbone_outputs(pair, feats)
+            stage = self._pair_stage(out, pair.rot, pair.trans, train, with_gt, generator)
+            out.update(stage.outputs)
+            out.update(self._ot_and_fine(stage, train))
+            return out
 
-    def _backbone_outputs(self, pair: PairInputs) -> Dict[str, torch.Tensor]:
-        """Backbone and descriptor projections (reference RIGA_v2.py:58-80);
-        flat (B * N, ...) rows for a packed pair. The projections are fp32
-        whatever the compute dtype (JAX's flax Dense without a dtype
-        promotes bf16 x fp32 to fp32)."""
-        (src_nodes, src_node_feats, src_points, src_point_feats, src_node_count, tgt_nodes,
-         tgt_node_feats, tgt_points, tgt_point_feats, tgt_node_count) = self.backbone(
+    def _backbone(self, pair: PairInputs) -> tuple:
+        """The backbone's tuple of node and point features (backbone.py)."""
+        return self.backbone(
             pair.src_raw_points, pair.src_normals, pair.src_feats, pair.src_count,
             pair.tgt_points, pair.tgt_normals, pair.tgt_feats, pair.tgt_count, pair.src_points,
             src_pyramid=pair.src_pyramid, tgt_pyramid=pair.tgt_pyramid)
+
+    def _backbone_outputs(self, pair: PairInputs, feats: tuple) -> Dict[str, torch.Tensor]:
+        """The backbone's outputs `feats` with the descriptor projections
+        (reference RIGA_v2.py:58-80); flat (B * N, ...) rows for a packed
+        pair. The projections are fp32 whatever the compute dtype (JAX's
+        flax Dense without a dtype promotes bf16 x fp32 to fp32)."""
+        (src_nodes, src_node_feats, src_points, src_point_feats, src_node_count, tgt_nodes,
+         tgt_node_feats, tgt_points, tgt_point_feats, tgt_node_count) = feats
         return {
             "src_points": src_points, "tgt_points": tgt_points,
             "src_nodes": src_nodes, "tgt_nodes": tgt_nodes,
@@ -282,12 +289,13 @@ class RoITr(nn.Module):
         # convergence exit is for inference only: training keeps the
         # reference's fixed count, as JAX's does
         ch = stage.src_knn_feats.shape[-1]
-        matching_scores = torch.einsum("pnc,pmc->pnm", stage.tgt_knn_feats,
-                                       stage.src_knn_feats) / ch ** 0.5
-        matching_scores = log_sinkhorn_ot(
-            matching_scores, tgt_knn_masks, src_knn_masks, self.optimal_transport.alpha,
-            num_iter=cfg.sinkhorn_iters, tol=0.0 if train else cfg.sinkhorn_tol,
-            differentiable=train, backend=cfg.sinkhorn_backend)
+        with span("model.ot", self.device):
+            matching_scores = torch.einsum("pnc,pmc->pnm", stage.tgt_knn_feats,
+                                           stage.src_knn_feats) / ch ** 0.5
+            matching_scores = log_sinkhorn_ot(
+                matching_scores, tgt_knn_masks, src_knn_masks, self.optimal_transport.alpha,
+                num_iter=cfg.sinkhorn_iters, tol=0.0 if train else cfg.sinkhorn_tol,
+                differentiable=train, backend=cfg.sinkhorn_backend)
 
         # fine matching (reference :158-169), no gradient; the exact path in
         # training, as the JAX train step takes it
@@ -323,24 +331,28 @@ class RoITr(nn.Module):
         from the one CPU `generator`, in pair order, so pair b's draw is the
         one a single-pair forward would make after the draws of pairs
         0..b-1."""
-        b = pair.src_count.shape[0]
-        flat = self._backbone_outputs(pair)
-        counts = ("src_count", "tgt_count", "src_node_count", "tgt_node_count")
-        views = {k: (v if k in counts else v.reshape(b, v.shape[0] // b, *v.shape[1:]))
-                 for k, v in flat.items()}
-        pick = lambda t, i: None if t is None else t[i]
-        stages = [self._pair_stage({k: v[i] for k, v in views.items()}, pick(pair.rot, i),
-                                   pick(pair.trans, i), train, with_gt, generator)
-                  for i in range(b)]
-        out = dict(views)
-        out.update({k: torch.stack([st.outputs[k] for st in stages]) for k in stages[0].outputs})
-        # the OT and fine matching take the B * P patches as one flat batch
-        patches = _Stage({k: torch.cat([st.outputs[k] for st in stages]) for k in _PATCH_KEYS},
-                         *(torch.cat([getattr(st, f) for st in stages])
-                           for f in _Stage._fields[1:]))
-        out.update({k: v.reshape(b, -1, *v.shape[1:])
-                    for k, v in self._ot_and_fine(patches, train=train).items()})
-        return out
+        feats = self._backbone(pair)
+        with span("model.matching", self.device):
+            b = pair.src_count.shape[0]
+            flat = self._backbone_outputs(pair, feats)
+            counts = ("src_count", "tgt_count", "src_node_count", "tgt_node_count")
+            views = {k: (v if k in counts else v.reshape(b, v.shape[0] // b, *v.shape[1:]))
+                     for k, v in flat.items()}
+            pick = lambda t, i: None if t is None else t[i]
+            stages = [self._pair_stage({k: v[i] for k, v in views.items()}, pick(pair.rot, i),
+                                       pick(pair.trans, i), train, with_gt, generator)
+                      for i in range(b)]
+            out = dict(views)
+            out.update({k: torch.stack([st.outputs[k] for st in stages])
+                        for k in stages[0].outputs})
+            # the OT and fine matching take the B * P patches as one flat batch
+            patches = _Stage({k: torch.cat([st.outputs[k] for st in stages])
+                              for k in _PATCH_KEYS},
+                             *(torch.cat([getattr(st, f) for st in stages])
+                               for f in _Stage._fields[1:]))
+            out.update({k: v.reshape(b, -1, *v.shape[1:])
+                        for k, v in self._ot_and_fine(patches, train=train).items()})
+            return out
 
 
 # the stage outputs that describe the patches (read by the OT's fine matching)

@@ -12,13 +12,15 @@ from __future__ import annotations
 import torch
 
 from roitr_torch.kernels.fps_kernel import fps_pairs
+from roitr_torch.utils.profiling import span
 
 
 def furthest_point_sampling(points: torch.Tensor, counts: torch.Tensor,
                             num_samples: int) -> torch.Tensor:
     """points (B, N, 3) with `counts` (B,) valid prefix rows ->
     idx (B, num_samples) int64."""
-    return fps_pairs(points.contiguous(), counts, num_samples).long()
+    with span("fps", points.device):
+        return fps_pairs(points.contiguous(), counts, num_samples).long()
 
 
 def num_valid_samples(count, stride: int):

@@ -17,6 +17,7 @@ import torch
 
 from roitr_torch.ops.geometry import pairwise_sq_dist, prefix_mask
 from roitr_torch.ops.topk import topk
+from roitr_torch.utils.profiling import span
 
 _INF = 1e10
 # distance entries per query tile (fp32 distances + int64 sort keys)
@@ -55,33 +56,34 @@ def masked_knn(queries: torch.Tensor, keys: torch.Tensor, key_count, k: int,
     the sentinel distance, and they take part in attention like any
     neighbor (reference knnquery_cuda_kernel.cu:65-108).
     """
-    q, n = queries.shape[-2], keys.shape[-2]
-    batch = queries.shape[:-2]
-    kk = min(k + 1 if exclude_self else k, n)
-    count = torch.as_tensor(key_count, device=keys.device)
-    key_invalid = torch.arange(n, device=keys.device) >= count[..., None]  # (..., N)
-    inf = torch.tensor(_INF, dtype=torch.float32, device=keys.device)
-    tile = max(1, _TILE_ELEMS // max(n * batch.numel(), 1))
-    idx_parts, d2_parts = [], []
-    for s in range(0, q, tile):
-        d2 = pairwise_sq_dist(queries[..., s:s + tile, :], keys)
-        d2 = torch.where(key_invalid[..., None, :], inf, d2)
-        d, i = topk(d2, kk, dim=-1, largest=False)
-        idx_parts.append(i)
-        d2_parts.append(d)
-    idx = torch.cat(idx_parts, dim=-2)
-    d2 = torch.cat(d2_parts, dim=-2)
-    if exclude_self:
-        idx, d2 = idx[..., 1:], d2[..., 1:]
-        if idx.shape[-1] < k:
-            pad = (*batch, q, k - idx.shape[-1])
-            idx = torch.cat([idx, idx.new_zeros(pad)], dim=-1)
-            d2 = torch.cat([d2, d2.new_full(pad, _INF)], dim=-1)
-        rank = torch.arange(idx.shape[-1], device=idx.device)
-        phantom = rank >= count[..., None, None] - 1
-        idx = torch.where(phantom, torch.zeros_like(idx), idx)
-        d2 = torch.where(phantom, inf, d2)
-    return idx, torch.sqrt(d2)
+    with span("knn", keys.device):
+        q, n = queries.shape[-2], keys.shape[-2]
+        batch = queries.shape[:-2]
+        kk = min(k + 1 if exclude_self else k, n)
+        count = torch.as_tensor(key_count, device=keys.device)
+        key_invalid = torch.arange(n, device=keys.device) >= count[..., None]  # (..., N)
+        inf = torch.tensor(_INF, dtype=torch.float32, device=keys.device)
+        tile = max(1, _TILE_ELEMS // max(n * batch.numel(), 1))
+        idx_parts, d2_parts = [], []
+        for s in range(0, q, tile):
+            d2 = pairwise_sq_dist(queries[..., s:s + tile, :], keys)
+            d2 = torch.where(key_invalid[..., None, :], inf, d2)
+            d, i = topk(d2, kk, dim=-1, largest=False)
+            idx_parts.append(i)
+            d2_parts.append(d)
+        idx = torch.cat(idx_parts, dim=-2)
+        d2 = torch.cat(d2_parts, dim=-2)
+        if exclude_self:
+            idx, d2 = idx[..., 1:], d2[..., 1:]
+            if idx.shape[-1] < k:
+                pad = (*batch, q, k - idx.shape[-1])
+                idx = torch.cat([idx, idx.new_zeros(pad)], dim=-1)
+                d2 = torch.cat([d2, d2.new_full(pad, _INF)], dim=-1)
+            rank = torch.arange(idx.shape[-1], device=idx.device)
+            phantom = rank >= count[..., None, None] - 1
+            idx = torch.where(phantom, torch.zeros_like(idx), idx)
+            d2 = torch.where(phantom, inf, d2)
+        return idx, torch.sqrt(d2)
 
 
 def masked_min_dist(queries: torch.Tensor, keys: torch.Tensor, key_count) -> torch.Tensor:
@@ -90,16 +92,17 @@ def masked_min_dist(queries: torch.Tensor, keys: torch.Tensor, key_count) -> tor
     distances. A min-reduce over query tiles of per-coordinate differences
     (no x^2 - 2xy + y^2 cancellation), as in the JAX package; the (Q, N)
     matrix never exists whole."""
-    q, n = queries.shape[0], keys.shape[0]
-    key_invalid = ~prefix_mask(n, key_count, device=keys.device)
-    inf = torch.tensor(_INF, dtype=torch.float32, device=keys.device)
-    tile = max(1, _TILE_ELEMS // 4 // max(n, 1))
-    parts = []
-    for s in range(0, q, tile):
-        t = queries[s:s + tile]
-        d2 = sum((t[:, i, None] - keys[None, :, i]) ** 2 for i in range(3))  # (T, N)
-        parts.append(torch.where(key_invalid[None, :], inf, d2).amin(dim=1))
-    return torch.sqrt(torch.cat(parts))
+    with span("knn", keys.device):
+        q, n = queries.shape[0], keys.shape[0]
+        key_invalid = ~prefix_mask(n, key_count, device=keys.device)
+        inf = torch.tensor(_INF, dtype=torch.float32, device=keys.device)
+        tile = max(1, _TILE_ELEMS // 4 // max(n, 1))
+        parts = []
+        for s in range(0, q, tile):
+            t = queries[s:s + tile]
+            d2 = sum((t[:, i, None] - keys[None, :, i]) ** 2 for i in range(3))  # (T, N)
+            parts.append(torch.where(key_invalid[None, :], inf, d2).amin(dim=1))
+        return torch.sqrt(torch.cat(parts))
 
 
 def knn_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,6 @@ initialized.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -27,6 +26,7 @@ import torch.distributed as dist
 from roitr_torch.losses import evaluate, overall_loss
 from roitr_torch.models.roitr import PairInputs, RoITr
 from roitr_torch.parallel.distributed import all_reduce_weighted_
+from roitr_torch.utils.profiling import span
 
 
 class TrainOptimizer:
@@ -160,26 +160,6 @@ def batch_pairs(batch: Batch) -> int:
     return int(batch.src_count.shape[0]) if batch.src_count.ndim == 1 else 1
 
 
-class _Laps:
-    """Milliseconds between laps, synchronising the card at each lap."""
-
-    def __init__(self, device: torch.device, out: Optional[dict]):
-        self.device, self.out = device, out
-        self.t = self._now() if out is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        """Add the ms since the last lap to out[name]."""
-        if self.out is not None:
-            t = self._now()
-            self.out[name] = self.out.get(name, 0.0) + (t - self.t) * 1e3
-            self.t = t
-
-
 # the metrics of a train or eval step, in the order the process group reduces them
 STEP_METRICS = ("loss", "c_loss", "f_loss", "o_loss", "PIR", "IR")
 
@@ -196,7 +176,8 @@ def train_step(model: RoITr, optimizer: TrainOptimizer, batch: Optional[Batch],
     Gumbel noise, pair by pair in batch order. JAX's NaN guard covers the
     losses and every gradient: one pair's non-finite loss skips the update.
     Given a dict, `timings` receives the forward, backward and optimizer ms
-    (summed over a list's pairs).
+    (summed over a list's pairs) from the `train.*` spans, which then
+    synchronise the card at their edges (utils/profiling.py `span`).
 
     In a process group (parallel/distributed.py), `batch` is this rank's
     share of a step of the group (None when its loader has run out: it
@@ -212,28 +193,28 @@ def train_step(model: RoITr, optimizer: TrainOptimizer, batch: Optional[Batch],
     if batch is None and not distributed:
         raise ValueError("train_step needs a batch (None only in a process group)")
     cfg = model.cfg
-    laps = _Laps(model.device, timings)
+    dev = model.device
     pairs = [] if batch is None else batch if isinstance(batch, list) else [batch]
     per_pair = []
     for pair in pairs:
-        out = model(pair, train=True, with_gt=True, generator=generator)
-        losses = _pair_losses(cfg, out, pair.rot, pair.trans)
-        laps.lap("forward_ms")
-        (losses["loss"] / len(pairs)).backward()
-        laps.lap("backward_ms")
+        with span("train.forward", dev, timings):
+            out = model(pair, train=True, with_gt=True, generator=generator)
+            losses = _pair_losses(cfg, out, pair.rot, pair.trans)
+        with span("train.backward", dev, timings):
+            (losses["loss"] / len(pairs)).backward()
         per_pair.append({k: v.detach() for k, v in losses.items()})
-    with torch.no_grad():
-        if distributed:
+    if distributed:
+        with span("train.allreduce", dev, timings), torch.no_grad():
             metrics, grads_finite = _reduce_step(optimizer, per_pair, batch, model.device)
-            laps.lap("allreduce_ms")
-        else:
-            metrics = {k: torch.stack([m[k] for m in per_pair]).mean() for k in per_pair[0]}
-            # one pass over every gradient element, as JAX's guard
-            flat = torch.cat([torch.stack([m["loss"] for m in per_pair])] + [
-                p.grad.reshape(-1) for p in optimizer.params if p.grad is not None])
-            grads_finite = bool(torch.isfinite(flat).all())
-    optimizer.step(grads_finite)
-    laps.lap("optimizer_ms")
+    with span("train.optimizer", dev, timings):
+        if not distributed:
+            with torch.no_grad():
+                metrics = {k: torch.stack([m[k] for m in per_pair]).mean() for k in per_pair[0]}
+                # one pass over every gradient element, as JAX's guard
+                flat = torch.cat([torch.stack([m["loss"] for m in per_pair])] + [
+                    p.grad.reshape(-1) for p in optimizer.params if p.grad is not None])
+                grads_finite = bool(torch.isfinite(flat).all())
+        optimizer.step(grads_finite)
     result = {k: float(v) for k, v in metrics.items()}
     result["grads_finite"] = float(grads_finite)
     return result

@@ -39,6 +39,7 @@ from roitr_torch.models.roitr import PairInputs, RoITr
 from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
 from roitr_torch.train.checkpoint import load_model_state
 from roitr_torch.utils.packing import to_device
+from roitr_torch.utils.profiling import span
 
 # correspondence rows copied to the host: src xyz 0:3 | tgt xyz 3:6 |
 # score 6 | mask 7, one (..., C, 8) array a forward (one copy, not four)
@@ -148,8 +149,20 @@ class Matcher:
         Returns src_corr_pts/tgt_corr_pts (C, 3) and confidence (C,), C
         data-dependent; with descriptors=True also the node and point
         descriptors, trimmed to the valid counts."""
-        pair, est = self._prepare(src_pcd, tgt_pcd, src_normals, tgt_normals)
-        out = self.model(device_prep_pair(to_device(pair, self.device), self.cfg, est))
+        dev = self.device
+        with span("request", dev):
+            with span("request.h2d", dev):
+                pair, est = self._prepare(src_pcd, tgt_pcd, src_normals, tgt_normals)
+                pair = to_device(pair, dev)
+            with span("request.normals", dev):
+                pair = device_prep_pair(pair, self.cfg, est)
+            with span("request.forward", dev):
+                out = self.model(pair)
+            with span("request.d2h", dev):
+                return self._read(out)
+
+    def _read(self, out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        """One forward's output -> the trimmed numpy result of `match`."""
         res = _corr_unpack(_corr_pack(out).cpu().numpy())
         if self.descriptors:
             sc, tc = int(out["src_count"]), int(out["tgt_count"])
@@ -170,14 +183,29 @@ class Matcher:
         device under prep="device"); map: the pairs one after another
         through the single-pair forward. The group's inputs go to the card
         in one copy."""
+        dev = self.device
         if mode == "packed":
-            batch = to_device(pack_pairs(group, require_pyramids=self.prep != "device"),
-                              self.device)
-            batch = device_prep_packed(batch, self.cfg, est, pyramid=batch.src_pyramid is None)
-            return _corr_pack(self.model(batch))
-        pairs = to_device(group, self.device)
-        return torch.stack([_corr_pack(self.model(device_prep_pair(p, self.cfg, est)))
-                            for p in pairs])
+            with span("request.h2d", dev):
+                batch = to_device(pack_pairs(group, require_pyramids=self.prep != "device"), dev)
+            with span("request.normals", dev):
+                batch = device_prep_packed(batch, self.cfg, est,
+                                           pyramid=batch.src_pyramid is None)
+            with span("request.forward", dev):
+                out = self.model(batch)
+            with span("request.d2h", dev):
+                return _corr_pack(out)
+        with span("request.h2d", dev):
+            pairs = to_device(group, dev)
+        rows = []
+        for p in pairs:
+            with span("request.normals", dev):
+                p = device_prep_pair(p, self.cfg, est)
+            with span("request.forward", dev):
+                out = self.model(p)
+            with span("request.d2h", dev):
+                rows.append(_corr_pack(out))
+        with span("request.d2h", dev):
+            return torch.stack(rows)
 
     @torch.no_grad()
     def match_batch(self, pairs: Sequence, batch_size: int = 8,
@@ -207,41 +235,47 @@ class Matcher:
             raise ValueError(f"unknown match_batch mode {mode!r}")
         if not self.cfg.host_pyramid and self.prep != "device":
             raise ValueError("match_batch requires cfg.host_pyramid=True or prep='device'")
-        prepared, groups = [], {}
-        for i, item in enumerate(pairs):
-            pair, est = self._prepare(item[0], item[1], item[2] if len(item) > 2 else None,
-                                      item[3] if len(item) > 3 else None)
-            prepared.append(pair)
-            groups.setdefault((int(pair.src_points.shape[0]), est), []).append(i)
+        dev = self.device
+        with span("request", dev):
+            prepared, groups = [], {}
+            with span("request.h2d", dev):
+                for i, item in enumerate(pairs):
+                    pair, est = self._prepare(item[0], item[1],
+                                              item[2] if len(item) > 2 else None,
+                                              item[3] if len(item) > 3 else None)
+                    prepared.append(pair)
+                    groups.setdefault((int(pair.src_points.shape[0]), est), []).append(i)
 
-        window = 3
-        results: Dict[int, Dict[str, np.ndarray]] = {}
-        inflight: list = []  # (pair indices, pinned rows, event)
+            window = 3
+            results: Dict[int, Dict[str, np.ndarray]] = {}
+            inflight: list = []  # (pair indices, pinned rows, event)
 
-        def drain_one():
-            idxs, host, event = inflight.pop(0)
-            if event is not None:
-                event.synchronize()
-            corr = host.numpy()
-            for j, i in enumerate(idxs):
-                results[i] = _corr_unpack(corr[j])
+            def drain_one():
+                idxs, host, event = inflight.pop(0)
+                if event is not None:
+                    event.synchronize()
+                corr = host.numpy()
+                for j, i in enumerate(idxs):
+                    results[i] = _corr_unpack(corr[j])
 
-        for (bucket, est), idxs in groups.items():
-            use_mode = mode if mode != "auto" else ("packed" if bucket <= 1024 else "map")
-            for s in range(0, len(idxs), batch_size):
-                group = idxs[s:s + batch_size]
-                rows = self._run_group([prepared[i] for i in group], use_mode, est)
-                event = None
-                if rows.is_cuda:
-                    host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-                    host.copy_(rows, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record()
-                else:
-                    host = rows
-                inflight.append((group, host, event))
-                if len(inflight) > window:
+            for (bucket, est), idxs in groups.items():
+                use_mode = mode if mode != "auto" else ("packed" if bucket <= 1024 else "map")
+                for s in range(0, len(idxs), batch_size):
+                    group = idxs[s:s + batch_size]
+                    rows = self._run_group([prepared[i] for i in group], use_mode, est)
+                    with span("request.d2h", dev):
+                        event = None
+                        if rows.is_cuda:
+                            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                            host.copy_(rows, non_blocking=True)
+                            event = torch.cuda.Event()
+                            event.record()
+                        else:
+                            host = rows
+                        inflight.append((group, host, event))
+                        if len(inflight) > window:
+                            drain_one()
+            with span("request.d2h", dev):
+                while inflight:
                     drain_one()
-        while inflight:
-            drain_one()
-        return [results[i] for i in range(len(prepared))]
+            return [results[i] for i in range(len(prepared))]

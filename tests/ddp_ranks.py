@@ -164,15 +164,17 @@ def config_for_tester(small, name, **kw):
 
 def _mesh_step(cfg, rank, pair):
     """One step of one pair a rank from the seed-0 weights (those converted
-    into JAX's parameters): the reduced gradient (rank 0's), its digest
-    and the step's metrics."""
+    into JAX's parameters): the reduced gradient (rank 0's), its digest,
+    the step's metrics and its `timings`."""
     model = RoITr(cfg, device="cpu", seed=0)
     broadcast_parameters(model)
     opt = make_optimizer(cfg, model, steps_per_epoch=1)
     grads = capture_grads(opt)
-    metrics = train_step(model, opt, dict_to_pair(pair), torch.Generator().manual_seed(rank))
+    timings = {}
+    metrics = train_step(model, opt, dict_to_pair(pair), torch.Generator().manual_seed(rank),
+                         timings)
     return dict(grad=grads[0] if rank == 0 else None, grad_digest=digest(grads[0]),
-                metrics=metrics)
+                metrics=metrics, timings=timings)
 
 
 def ddp_checks(rank, world, base, small, pairs, states, mesh_kw, mesh_pairs):

@@ -208,6 +208,13 @@ def test_one_step_one_pair_a_rank_matches_jax_mesh_step(ddp):
     assert np.dot(g, w) / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.9999
 
 
+def test_train_step_timings_in_a_process_group(ddp):
+    for r in ddp["ranks"]:
+        t = r["mesh"]["timings"]
+        assert set(t) == {"forward_ms", "backward_ms", "allreduce_ms", "optimizer_ms"}
+        assert all(v >= 0.0 for v in t.values())
+
+
 def test_uneven_ranks_step_together_and_weigh_by_pairs(ddp):
     r0, r1 = ddp["ranks"]
     assert len(r0["metrics"]) == len(r1["metrics"]) == 2

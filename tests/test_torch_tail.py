@@ -302,11 +302,11 @@ def test_factory_layers_match_jax_registries():
 # ---- utils/profiling.py
 
 def test_profiling_trace_names_the_annotated_region(tmp_path):
-    from roitr_torch.utils.profiling import annotate, log_elapsed, trace
+    from roitr_torch.utils.profiling import log_elapsed, span, trace
     from roitr_tpu.utils.profiling import log_elapsed as jax_log_elapsed
 
     with trace(str(tmp_path / "profiles")) as log_dir:
-        with annotate("roitr_region"):
+        with span("roitr_region"):
             torch.ones(64).cumsum(0)
     files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
     assert len(files) == 1

@@ -13,12 +13,11 @@ after one warm-up request, and prints:
     under prep="host" and prep="device", the two in turns (their order
     alternates from request to request); all on the host clock around
     torch.cuda.synchronize();
-  * per stage of the forward (inclusive wall ms, summed over the three
-    requests, with a synchronize at each stage boundary, so the stages add
-    the cost of those waits and nothing else);
-  * one request under torch.profiler: device time by kernel name (top 15),
-    the device's busy share of the request's wall time, and the share of
-    the port's own CUDA kernels.
+  * one request under prep="device" inside utils/profiling.py `trace()`:
+    the program's spans (`span_summary()`: calls, host ms, self host ms,
+    device ms), the device idle under each span of the exported trace
+    (`device_idle_by_span`) and, on the card, device time by operation
+    name (top 15) from the same trace.
 
 On the card, each line carries the card's name and power limit. With
 --device cpu it times the CPU run, whose numbers say nothing of the card.
@@ -28,10 +27,10 @@ from __future__ import annotations
 
 import argparse
 import collections
-import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,56 +46,20 @@ from roitr_torch.data.preprocess import pad_cloud, pick_bucket  # noqa: E402
 from roitr_torch.models.roitr import RoITr  # noqa: E402
 from roitr_torch.ops.normals import estimate_normals  # noqa: E402
 from roitr_torch.serving import Matcher  # noqa: E402
-
-STAGE_MS: "collections.Counter[str]" = collections.Counter()
+from roitr_torch.utils.profiling import (  # noqa: E402
+    DEVICE_CATS,
+    device_idle_by_span,
+    reset_spans,
+    span_summary,
+    span_table,
+    trace,
+    trace_events,
+)
 
 
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize()
-
-
-def _timed(name, fn, device):
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        _sync(device)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _sync(device)
-        STAGE_MS[name] += (time.perf_counter() - t0) * 1e3
-        return out
-
-    return run
-
-
-def instrument(device):
-    """Wrap the forward's stages (module globals and methods) in timers."""
-    import roitr_torch.models.backbone as bb
-    import roitr_torch.models.roitr as rt
-    import roitr_torch.ops.neighbors as nb
-    from roitr_torch.models.attention import GlobalRPESelfAttention, LocalPPFTransformer
-    from roitr_torch.models.embeddings import GeometricStructureEmbedding
-    from roitr_torch.models.transformer import GeometricTransformer
-
-    for mod, name, stage in (
-        (bb, "_device_fps_pyramids", "backbone: FPS pyramids (kernel 1)"),
-        (bb, "masked_knn", "backbone: kNN (self and cross)"),
-        (nb, "masked_knn", "backbone: kNN of the 3-NN upsampling"),
-        (rt, "point_to_node_partition", "point-to-node partition"),
-        (rt, "coarse_matching", "coarse matching"),
-        (rt, "log_sinkhorn_ot", "Sinkhorn (kernel 4, with its inputs)"),
-        (rt, "fine_matching", "fine matching"),
-    ):
-        setattr(mod, name, _timed(stage, getattr(mod, name), device))
-    for cls, stage in (
-        (bb.RIPointTransformer, "backbone (all)"),
-        (LocalPPFTransformer, "backbone: local PPF attention"),
-        (GeometricTransformer, "global transformer (all)"),
-        (GeometricStructureEmbedding, "global: geometric embedding (kernel 2, with indices)"),
-        (GlobalRPESelfAttention, "global: RPE self-attention (kernel 3, with projections)"),
-        (RoITr, "forward (all)"),
-    ):
-        cls.forward = _timed(stage, cls.forward, device)
 
 
 def card_line(device) -> str:
@@ -177,47 +140,28 @@ def main() -> int:
               f"wall prep=host {walls['host']:.1f} ms, prep=device {walls['device']:.1f} ms "
               f"({next(iter(walls))} first); {card}", flush=True)
 
-    instrument(device)
-    for src, tgt in reqs:
-        matcher.match(src, tgt, *normals(src, tgt))
-    stages = {name: ms / len(reqs) for name, ms in STAGE_MS.items()}
-    print(f"[stages] inclusive wall ms a request, mean of {len(reqs)} requests; {card}")
-    for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"[stages] {ms:9.2f} ms/request  {name}")
-
-    prof_rows = None
-    if device.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-
-        src, tgt = reqs[1]
-        sn, tn = normals(src, tgt)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            matcher.match(src, tgt, sn, tn)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
-                   and str(e.device_type).endswith("CUDA")]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        ours = sum(e.self_device_time_total for e in kernels
-                   if any(s in e.key for s in ("fps_kernel", "geo_embedding_kernel",
-                                               "rpe_attention_kernel", "sinkhorn_lines_fwd",
-                                               "sinkhorn_kernel"))) / 1e3
-        print(f"[profile] one request (stages timed, so host waits included): wall "
-              f"{wall_ms:.1f} ms, device busy {busy:.1f} ms ({busy / wall_ms:.1%}), of which the "
-              f"port's four kernels {ours:.1f} ms; {card}")
-        kernels.sort(key=lambda e: -e.self_device_time_total)
-        prof_rows = []
-        for e in kernels[:15]:
-            ms = e.self_device_time_total / 1e3
-            prof_rows.append(dict(name=e.key[:90], ms=ms, calls=e.count))
-            print(f"[profile] {ms:9.3f} ms {e.count:6d} calls  {e.key[:90]}")
-        if busy == 0:
-            print("[profile] the profiler saw no device time: device numbers not measured")
+    src, tgt = reqs[1]
+    reset_spans()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            device_matcher.match(src, tgt)
+            _sync(device)
+        events = trace_events(tmp)
+    spans = span_summary()
+    idle = device_idle_by_span(events) if device.type == "cuda" else None
+    print(f"[spans] one request, prep=device, traced; {card}")
+    for line in span_table(spans, idle):
+        print(f"[spans] {line}")
+    ops = collections.Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+            ops[e["name"][:90]] += float(e.get("dur", 0)) / 1e3
+    for name, ms in ops.most_common(15):
+        print(f"[profile] {ms:9.3f} ms  {name}")
     if args.json:
         Path(args.json).write_text(json.dumps(dict(
-            card=card, requests=rows, stages_ms_per_request=stages, profile_top=prof_rows),
-            indent=1))
+            card=card, requests=rows, spans=spans, idle_ms_by_span=idle,
+            profile_top=ops.most_common(15)), indent=1))
     return 0
 
 

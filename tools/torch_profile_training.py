@@ -7,11 +7,13 @@
 Runs the 3DMatch training configuration (configs/train/tdmatch.yaml) at
 full width with seeded random weights on synthetic pairs (20k-30k points,
 the 32768 bucket by default): one warm-up step, then three steps split into
-forward (losses and metrics included), backward and optimizer, each border
-on the host clock after torch.cuda.synchronize(); then one step under
-torch.profiler: device time by kernel name (top 20), the device's busy
-share of the step's wall time, the share of the port's seven CUDA kernels
-and each one's device time and calls, and the peak device memory of a step.
+forward (losses and metrics included), backward and optimizer, the laps of
+`train_step`'s `timings` (each border on the host clock after
+torch.cuda.synchronize()), and the peak device memory of those steps; then
+one step inside utils/profiling.py `trace()`: the program's spans
+(`span_summary()`), the device idle under each span of the exported trace
+(`device_idle_by_span`) and, on the card, device time by operation name
+(top 20) from the same trace.
 With --packed B each step is a packed batch of B pairs (data/packing.py,
 host pyramids, as packed training needs); --host-pyramid gives single
 pairs host pyramids too, so that the two modes compare at the same prep.
@@ -23,9 +25,10 @@ On the card, each line carries the card's name and power limit. With
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import sys
-import time
+import tempfile
 from pathlib import Path
 
 import torch
@@ -39,20 +42,17 @@ from roitr_torch.data.pyramid import build_cloud_pyramid  # noqa: E402
 from roitr_torch.data.synthetic import SyntheticPairs  # noqa: E402
 from roitr_torch.models.roitr import RoITr  # noqa: E402
 from roitr_torch.parallel.train_step import make_optimizer, train_step  # noqa: E402
+from roitr_torch.utils.profiling import (  # noqa: E402
+    DEVICE_CATS,
+    device_idle_by_span,
+    reset_spans,
+    span_summary,
+    span_table,
+    trace,
+    trace_events,
+)
 
 from torch_profile_serving import card_line  # noqa: E402
-
-# each port kernel's device functions, by the names' substrings: the RPE
-# backward is its row kernel and the products before and after it; each
-# Sinkhorn row its line kernel (the main path's) and its general kernel
-OUR_KERNELS = {
-    "fps_kernel": ("fps_kernel",), "geo_embedding_kernel": ("geo_embedding_kernel",),
-    "geo_embedding_bwd": ("geo_embedding_bwd",), "rpe_attention_kernel": ("rpe_attention_kernel",),
-    "rpe_attention_bwd": ("rpe_attention_bwd", "rpe_products", "rpe_sum_splits"),
-    "sinkhorn_kernel": ("sinkhorn_lines_fwd", "sinkhorn_kernel"),
-    "sinkhorn_bwd_kernel": ("sinkhorn_lines_bwd", "sinkhorn_bwd_kernel"),
-}
-
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -105,39 +105,28 @@ def main() -> int:
     if peak is not None:
         print(f"[memory] max_memory_allocated over the three steps {peak:.2f} GiB; {card}")
 
-    prof_rows = None
-    if device.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    reset_spans()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
             train_step(model, opt, pairs[4], gen)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
-                   and str(e.device_type).endswith("CUDA")]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        ours = sum(e.self_device_time_total for e in kernels
-                   if any(s in e.key for subs in OUR_KERNELS.values() for s in subs)) / 1e3
-        print(f"[profile] one train step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-              f"({busy / wall_ms:.1%}), of which the port's seven kernels {ours:.1f} ms; {card}")
-        for name, subs in OUR_KERNELS.items():
-            mine = [e for e in kernels if any(s in e.key for s in subs)]
-            print(f"[profile] port kernel {name}: "
-                  f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms in "
-                  f"{sum(e.count for e in mine)} calls")
-        kernels.sort(key=lambda e: -e.self_device_time_total)
-        prof_rows = []
-        for e in kernels[:20]:
-            ms = e.self_device_time_total / 1e3
-            prof_rows.append(dict(name=e.key[:90], ms=ms, calls=e.count))
-            print(f"[profile] {ms:9.3f} ms {e.count:6d} calls  {e.key[:90]}")
-        if busy == 0:
-            print("[profile] the profiler saw no device time: device numbers not measured")
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        events = trace_events(tmp)
+    spans = span_summary()
+    idle = device_idle_by_span(events) if device.type == "cuda" else None
+    print(f"[spans] one train step, traced; {card}")
+    for line in span_table(spans, idle):
+        print(f"[spans] {line}")
+    ops = collections.Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+            ops[e["name"][:90]] += float(e.get("dur", 0)) / 1e3
+    for name, ms in ops.most_common(20):
+        print(f"[profile] {ms:9.3f} ms  {name}")
     if args.json:
-        Path(args.json).write_text(json.dumps(dict(card=card, steps=rows, peak_gib=peak,
-                                                   profile_top=prof_rows), indent=1))
+        Path(args.json).write_text(json.dumps(dict(
+            card=card, steps=rows, peak_gib=peak, spans=spans, idle_ms_by_span=idle,
+            profile_top=ops.most_common(20)), indent=1))
     return 0
 
 
