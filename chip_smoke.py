@@ -20,7 +20,9 @@ Phases, each of which exits non-zero on failure:
                trajectory (training's) and making its own; the RPE
                attention forward and backward also with a pair axis (B 8 at
                N 16, B 2 at N 512; bit-equal to one-pair launches), and
-               rows 2, 7, 4 and 5 at a packed train step's shapes
+               rows 2, 7, 4 and 5 at a packed train step's shapes; the kNN
+               kernel against the tiled search at a request's searches
+               (indices and squared distances bit for bit)
   4. forward   one seeded pair at the 4096 bucket through RoITr on the card
                (kernels) and on the CPU (plain versions), same weights
   5. serving   Matcher.match at full 3DMatch width on three synthetic pairs
@@ -633,7 +635,85 @@ def phase_kernels(rng, hidden: int = 256, serving_patches: int = 256, tag: str =
           f"{ms:.4f} ms from the trajectory, {made_ms:.4f} ms making its own", flush=True)
     rows["sinkhorn_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bytes=byt + traj_bytes, flops=ops, sfu=sfu)
+    if extras:
+        knn_row(rows, tag)
     return rows
+
+
+# the kNN searches of one request at the 32768 bucket, both clouds in one
+# launch (device normals, the pyramid's first two levels, the 3-NN
+# upsampling): (name, queries, keys, k, exclude_self)
+KNN_SEARCHES = (
+    ("normals kk 33", 32768, 32768, 33, False),
+    ("level 1 self kk 9", 32768, 32768, 8, True),
+    ("level 2 cross kk 17", 8192, 32768, 16, True),
+    ("level 2 self kk 17", 8192, 8192, 16, True),
+    ("3-NN upsampling kk 3", 32768, 8192, 3, False),
+)
+# fp32 operations a (query, key) entry: the dot product's multiply and two
+# FMAs, the -2xy FMA, the add, the clamp and the compare
+KNN_OPS_PER_ENTRY = 8
+
+
+def knn_row(rows, tag):
+    """The kNN kernel against its plain version, the tiled search (the
+    library yardstick too: torch.topk over int64 keys), on two clouds of
+    26000 and 21000 valid points: indices and squared distances bit for bit,
+    ms of each search and of the set; then the occlusion score's 1-NN both
+    ways (21000 x 26000 valid points). The bound counts the valid queries
+    times the valid keys."""
+    from roitr_torch.kernels.knn_kernel import knn, knn_plain, min_dist, min_dist_plain
+
+    dev = torch.device("cuda")
+    gen = np.random.RandomState(11)
+    counts = (26000, 21000)
+
+    def clouds(n, valid):
+        pts = np.zeros((len(valid), n, 3), np.float32)
+        for i, c in enumerate(valid):
+            pts[i, :c] = gen.rand(c, 3) * 3.0
+        return torch.from_numpy(pts).to(dev)
+
+    ms = plain_ms = ops = byt = err = 0.0
+    for name, q, n, k, exclude_self in KNN_SEARCHES:
+        kc = [c * n // 32768 for c in counts]
+        qc = [c * q // 32768 for c in counts]
+        keys = clouds(n, kc)
+        queries = keys if q == n else clouds(q, qc)
+        cnt = torch.tensor(kc, device=dev)
+        idx, d2 = knn(queries, keys, cnt, k, exclude_self, squared=True)
+        ref_idx, ref_d2 = knn_plain(queries, keys, cnt, k, exclude_self)
+        if not (torch.equal(idx, ref_idx) and torch.equal(d2, ref_d2)):
+            fail(f"knn kernel differs from the tiled search in {name}")
+        dist = knn(queries, keys, cnt, k, exclude_self)[1]
+        err = max(err, float((dist - torch.sqrt(ref_d2)).abs().max()))
+        t = cuda_ms(lambda: knn(queries, keys, cnt, k, exclude_self), 20)
+        tp = cuda_ms(lambda: knn_plain(queries, keys, cnt, k, exclude_self), 3)
+        entries = sum(a * b for a, b in zip(qc, kc))
+        ops += KNN_OPS_PER_ENTRY * entries
+        byt += 12 * 2 * (q + n) + 12 * 2 * q * idx.shape[-1]
+        ms, plain_ms = ms + t, plain_ms + tp
+        print(f"{tag} knn {name} (B 2, {q} x {n}): kernel {t:.3f} ms, tiled {tp:.2f} ms; "
+              f"{entries / t / 1e6:.1f} G valid entries/s; indices and d^2 equal", flush=True)
+    a, b = clouds(21001, (21000,))[0], clouds(26001, (26000,))[0]
+    for x, y, c in ((a, b, 26000), (b, a, 21000)):
+        cnt = torch.tensor(c, device=dev)
+        d2 = min_dist(x, y, cnt, squared=True)
+        if not torch.equal(d2, min_dist_plain(x, y, cnt)):
+            fail("min_dist kernel differs from the tiled search")
+        t = cuda_ms(lambda: min_dist(x, y, cnt), 20)
+        tp = cuda_ms(lambda: min_dist_plain(x, y, cnt), 3)
+        ops += KNN_OPS_PER_ENTRY * (x.shape[0] - 1) * c
+        byt += 12 * (x.shape[0] + y.shape[0]) + 12 * x.shape[0]
+        ms, plain_ms = ms + t, plain_ms + tp
+        print(f"{tag} knn 1-NN distance {x.shape[0]} x {y.shape[0]}: kernel {t:.3f} ms, tiled "
+              f"{tp:.2f} ms; d^2 equal", flush=True)
+    b_ms, b_by = bound(byt, ops)
+    print(f"{tag} knn the set: kernel {ms:.3f} ms, tiled {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {ops:.4g} fp32 operations); max abs err of the distances {err:.3g}",
+          flush=True)
+    rows["knn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                       bytes=byt, flops=ops)
 
 
 def rpe_attention_pair_axis(gen):
@@ -929,7 +1009,11 @@ def phase_serving(cfg, state_dict, rng):
     missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
-    backward = [k for k, v in launches.items() if v and k not in FORWARD_KERNELS]
+    if launches["knn"] != len(clouds) * knn_searches(cfg):
+        fail(f"{launches['knn']} kNN launches over {len(clouds)} requests, expected "
+             f"{knn_searches(cfg)} a request")
+    backward = [k for k, v in without_knn(launches).items()
+                if v and k not in FORWARD_KERNELS]
     if backward:
         fail(f"backward kernels launched while serving: {backward}")
     return launches
@@ -955,6 +1039,22 @@ def _corr_diff(got, want):
 # geometric embedding one a side, RPE attention one a self layer and side,
 # Sinkhorn one
 FORWARD_LAUNCHES = {"fps": 3, "geo_embedding": 2, "rpe_attention": 6, "sinkhorn": 1}
+
+
+def knn_searches(cfg, gt: bool = False) -> int:
+    """kNN kernel launches of one pair's forward with host normals and no
+    host pyramids: each cloud's cross and self search a level, and its
+    decoder's 3-NN upsampling a strided level; `gt` adds the occlusion
+    score's 1-NN both ways (a train or validation step)."""
+    levels, strided = len(cfg.enc_strides), sum(s != 1 for s in cfg.enc_strides)
+    return 2 * (2 * levels + strided) + (2 if gt else 0)
+
+
+def without_knn(launches):
+    """A counter snapshot without the kNN kernel's launches, whose number
+    depends on where a phase builds its normals and pyramids; the serving
+    and training phases hold it exactly (knn_searches)."""
+    return {k: v for k, v in launches.items() if k != "knn"}
 
 
 def phase_packed(cfg, state_dict, rng):
@@ -1281,7 +1381,8 @@ def phase_tester(rng):
                     want["fps"] = 0
                 if {k: launches[k] for k in FORWARD_KERNELS} != want:
                     fail(f"Tester ({name}) launches {launches}, expected {want}")
-                backward = [k for k, v in launches.items() if v and k not in FORWARD_KERNELS]
+                backward = [k for k, v in without_knn(launches).items()
+                            if v and k not in FORWARD_KERNELS]
                 if backward:
                     fail(f"backward kernels launched by the Tester ({name}): {backward}")
                 for i, ((n, m), d) in enumerate(zip(sizes, dumps)):
@@ -1553,10 +1654,11 @@ def phase_training(rng):
     if missing:
         fail(f"kernels never launched on the training path: {missing}")
     # a train step: six RPE attention layers' backward, one OT forward and
-    # backward; the validation step one more OT forward
+    # backward; the validation step one more OT forward; each step the
+    # searches of a pair with the occlusion score
     steps_val = trainer.step + cfg.val_max_iter
     want = {"rpe_attention_bwd": 6 * trainer.step, "sinkhorn_bwd": trainer.step,
-            "sinkhorn": steps_val}
+            "sinkhorn": steps_val, "knn": steps_val * knn_searches(cfg, gt=True)}
     wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
     if wrong:
         fail(f"training launches (counted, expected): {wrong}")
@@ -1683,7 +1785,7 @@ def phase_packed_training(rng, single_launches):
         fail("a packed train step's loss or gradients were not finite")
     if not np.isfinite(best["loss"]) or changed == 0:
         fail("packed validation loss not finite, or the parameters did not change")
-    if launches != want:
+    if without_knn(launches) != want:
         fail(f"packed training launches {launches}, expected {want}")
 
     # one packed step of 8 pairs against 8 single-pair steps of the same
@@ -1983,7 +2085,7 @@ def _fdmatch_training(tmp, split, widths):
             and np.isfinite(val["loss"])):
         fail("[4dmatch] a train or validation loss or gradient was not finite")
     want = {k: 8 * TRAIN_STEP[k] + VAL_STEP[k] for k in TRAIN_STEP}
-    if launches != want:
+    if without_knn(launches) != want:
         fail(f"[4dmatch] Trainer launches {launches}, expected {want} (a kernel of the path "
              "missing, or a layer sent to the plain version)")
     if seen.seen != {"geo_embedding": {512}, "rpe_attention": {512}}:
@@ -2038,7 +2140,7 @@ def _fdmatch_tester(tmp, split, rng):
         if not run_cfg.device_prep:
             want["fps"] = 0  # host pyramids
         if {k: launches[k] for k in FORWARD_KERNELS} != want or any(
-                launches[k] for k in launches if k not in FORWARD_KERNELS):
+                v for k, v in without_knn(launches).items() if k not in FORWARD_KERNELS):
             fail(f"[4dmatch] Tester ({name}) launches {launches}, expected {want}")
         for d in dumps[name]:
             if "metric_index_list" not in d or d["src_pcd"].shape != d["src_raw_pcd"].shape:
@@ -2102,7 +2204,7 @@ def _timed_steps(models, pairs, order, tag, main):
                   flush=True)
             if metrics["grads_finite"] != 1.0 or not np.isfinite(metrics["loss"]):
                 fail(f"{tag} {name}: a loss or gradient was not finite")
-            if launches != TRAIN_STEP:
+            if without_knn(launches) != TRAIN_STEP:
                 fail(f"{tag} {name} step launched {launches}, expected {TRAIN_STEP}")
     for name, r in rows.items():
         later = r[len(pairs):]  # the first step of each mode warms its libraries up
@@ -2380,7 +2482,7 @@ def phase_workers(rng, main):
           f"+ 1 validation step in {wall:.1f} s (the pools' start included); val {best}; "
           f"launches {launches}; {time.time() - t_phase:.1f} s in all", flush=True)
     want = {k: 2 * TRAIN_STEP[k] + VAL_STEP[k] for k in TRAIN_STEP}
-    if trainer.step != 2 or launches != want or not np.isfinite(best["loss"]):
+    if trainer.step != 2 or without_knn(launches) != want or not np.isfinite(best["loss"]):
         fail(f"[workers] Trainer: {trainer.step} steps, launches {launches} (expected {want}), "
              f"val {best}")
 
@@ -2581,7 +2683,8 @@ def phase_ddp(rng, main):
               f"{ref_metrics['loss']:.4f}), pairs {metrics['pairs']:.0f}; all-reduce of the flat "
               f"gradient ({s['mb']:.1f} MB) alone "
               + ", ".join(f"{x:.2f}" for x in s["allreduce_ms"]) + " ms", flush=True)
-        if launches != TRAIN_STEP or metrics["grads_finite"] != 1.0 or metrics["pairs"] != world:
+        if (without_knn(launches) != TRAIN_STEP or metrics["grads_finite"] != 1.0
+                or metrics["pairs"] != world):
             fail(f"[ddp] rank {r}: launches {launches} (expected {TRAIN_STEP}), grads_finite "
                  f"{metrics['grads_finite']}, pairs {metrics['pairs']}")
     # the reduced gradient and losses are the one-process step's but for
@@ -2608,7 +2711,7 @@ def phase_ddp(rng, main):
             print(f"[ddp] Trainer {tag} rank {r}: {t['steps']} steps ({steps_ms}), 1 "
                   f"validation step, {t['wall']:.1f} s; val loss {t['best']['loss']:.4f}; "
                   f"checkpoints written {len(t['saves'])}; launches {t['launches']}", flush=True)
-            if t["steps"] != 2 or t["launches"] != want_launches:
+            if t["steps"] != 2 or without_knn(t["launches"]) != want_launches:
                 fail(f"[ddp] Trainer {tag} rank {r}: {t['steps']} steps, launches "
                      f"{t['launches']} (expected {want_launches})")
             if sorted(t["saves"]) != (names if r == 0 else []) or t["ckpts"] != names:
@@ -2950,7 +3053,7 @@ def phase_cli(rng, main):
                   f"pools' start included); checkpoints {ckpts}; sources snapshot {sources}; "
                   f"launches {train_launches}", flush=True)
             want = {k: 2 * TRAIN_STEP[k] + 2 * VAL_STEP[k] for k in TRAIN_STEP}
-            if trainer.step != 2 or train_launches != want or not sources or not {
+            if trainer.step != 2 or without_knn(train_launches) != want or not sources or not {
                     "model_0.pth", "model_best_loss.pth"} <= set(ckpts):
                 fail(f"[cli] train mode: {trainer.step} steps, launches {train_launches} "
                      f"(expected {want}), checkpoints {ckpts}")
@@ -3012,6 +3115,7 @@ SOURCES = {
                           "roitr_tpu/ops/pallas/rpe_attention_kernel.py:146"),
     "geo_embedding_bwd": ("roitr_torch/csrc/geo_embedding.cu",
                           "roitr_tpu/ops/pallas/geo_embedding_kernel.py:190"),
+    "knn": ("roitr_torch/csrc/knn.cu", "none (lax.top_k, approx_min_k: XLA)"),
 }
 
 
@@ -3061,7 +3165,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             # exps and logs on the special-function units are operations
             "bound_by": "bytes" if bound_by == "bytes" else "operations",
-            "library_ms": None,
+            "library_ms": row.get("library_ms"),
         })
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

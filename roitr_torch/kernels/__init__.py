@@ -25,6 +25,7 @@ launch_counts: Dict[str, int] = {
     "sinkhorn_bwd": 0,
     "rpe_attention_bwd": 0,
     "geo_embedding_bwd": 0,
+    "knn": 0,
 }
 # the kernels that inference runs; training adds the three backward kernels
 FORWARD_KERNELS = ("fps", "geo_embedding", "rpe_attention", "sinkhorn")

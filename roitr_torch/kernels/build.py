@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "roitr_torch"
-SOURCES = ("fps", "geo_embedding", "rpe_attention", "sinkhorn")
+SOURCES = ("fps", "geo_embedding", "knn", "rpe_attention", "sinkhorn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

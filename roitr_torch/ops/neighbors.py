@@ -1,11 +1,13 @@
 """Masked k-nearest-neighbor search, gathering and 3-NN interpolation.
 
-Counterpart of roitr_tpu/ops/neighbors.py. Distances come in query tiles,
-so the (Q, N) matrix never exists whole: at the 32768 bucket it would be
-4 GB. The search is exact. The JAX package's `method="approx"` is
-`jax.lax.approx_min_k`, a TPU operator that XLA computes exactly on every
-other backend (recall 1.0); the port takes that meaning
-(`check_knn_method`).
+Counterpart of roitr_tpu/ops/neighbors.py. The search is exact: on the
+card one kernel (kernels/knn_kernel.py, csrc/knn.cu) that keeps each
+query's k best in registers; on the CPU the kernel's plain version, which
+computes distances in query tiles, so the (Q, N) matrix never exists whole
+(at the 32768 bucket it would be 4 GB). The JAX package's
+`method="approx"` is `jax.lax.approx_min_k`, a TPU operator that XLA
+computes exactly on every other backend (recall 1.0); the port takes that
+meaning (`check_knn_method`).
 """
 
 from __future__ import annotations
@@ -15,13 +17,8 @@ import logging
 
 import torch
 
-from roitr_torch.ops.geometry import pairwise_sq_dist, prefix_mask
-from roitr_torch.ops.topk import topk
+from roitr_torch.kernels.knn_kernel import knn, min_dist
 from roitr_torch.utils.profiling import span
-
-_INF = 1e10
-# distance entries per query tile (fp32 distances + int64 sort keys)
-_TILE_ELEMS = 1 << 25
 
 KNN_METHODS = ("exact", "approx")
 
@@ -54,55 +51,22 @@ def masked_knn(queries: torch.Tensor, keys: torch.Tensor, key_count, k: int,
     nearest, and keeps the reference kernel's short-segment padding: when a
     cloud has fewer than k+1 valid points, the trailing slots are point 0 at
     the sentinel distance, and they take part in attention like any
-    neighbor (reference knnquery_cuda_kernel.cu:65-108).
+    neighbor (reference knnquery_cuda_kernel.cu:65-108). On the card a
+    search of more neighbours than the kernel's lists hold raises
+    (knn_kernel.supported_k).
     """
     with span("knn", keys.device):
-        q, n = queries.shape[-2], keys.shape[-2]
-        batch = queries.shape[:-2]
-        kk = min(k + 1 if exclude_self else k, n)
-        count = torch.as_tensor(key_count, device=keys.device)
-        key_invalid = torch.arange(n, device=keys.device) >= count[..., None]  # (..., N)
-        inf = torch.tensor(_INF, dtype=torch.float32, device=keys.device)
-        tile = max(1, _TILE_ELEMS // max(n * batch.numel(), 1))
-        idx_parts, d2_parts = [], []
-        for s in range(0, q, tile):
-            d2 = pairwise_sq_dist(queries[..., s:s + tile, :], keys)
-            d2 = torch.where(key_invalid[..., None, :], inf, d2)
-            d, i = topk(d2, kk, dim=-1, largest=False)
-            idx_parts.append(i)
-            d2_parts.append(d)
-        idx = torch.cat(idx_parts, dim=-2)
-        d2 = torch.cat(d2_parts, dim=-2)
-        if exclude_self:
-            idx, d2 = idx[..., 1:], d2[..., 1:]
-            if idx.shape[-1] < k:
-                pad = (*batch, q, k - idx.shape[-1])
-                idx = torch.cat([idx, idx.new_zeros(pad)], dim=-1)
-                d2 = torch.cat([d2, d2.new_full(pad, _INF)], dim=-1)
-            rank = torch.arange(idx.shape[-1], device=idx.device)
-            phantom = rank >= count[..., None, None] - 1
-            idx = torch.where(phantom, torch.zeros_like(idx), idx)
-            d2 = torch.where(phantom, inf, d2)
-        return idx, torch.sqrt(d2)
+        return knn(queries, keys, key_count, k, exclude_self)
 
 
 def masked_min_dist(queries: torch.Tensor, keys: torch.Tensor, key_count) -> torch.Tensor:
     """1-NN distance (no index) from each query to the valid keys: queries
     (Q, 3), keys (N, 3) with `key_count` valid prefix rows -> (Q,) sqrt
-    distances. A min-reduce over query tiles of per-coordinate differences
-    (no x^2 - 2xy + y^2 cancellation), as in the JAX package; the (Q, N)
-    matrix never exists whole."""
+    distances, by per-coordinate differences (no x^2 - 2xy + y^2
+    cancellation), as in the JAX package; the (Q, N) matrix never exists
+    whole."""
     with span("knn", keys.device):
-        q, n = queries.shape[0], keys.shape[0]
-        key_invalid = ~prefix_mask(n, key_count, device=keys.device)
-        inf = torch.tensor(_INF, dtype=torch.float32, device=keys.device)
-        tile = max(1, _TILE_ELEMS // 4 // max(n, 1))
-        parts = []
-        for s in range(0, q, tile):
-            t = queries[s:s + tile]
-            d2 = sum((t[:, i, None] - keys[None, :, i]) ** 2 for i in range(3))  # (T, N)
-            parts.append(torch.where(key_invalid[None, :], inf, d2).amin(dim=1))
-        return torch.sqrt(torch.cat(parts))
+        return min_dist(queries, keys, key_count)
 
 
 def knn_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,9 @@ largest value: against a float64 loop at (128, 65, 65) x 100 the fp32
 plain loop itself is about 1e-4 off there, and so is the kernel
 (`chip_smoke.py` prints both); the geometric embedding's
 backward is given the plain version's own argmax map, whose mismatches
-with the kernel's map are counted apart (near-ties within rounding).
+with the kernel's map are counted apart (near-ties within rounding). The
+kNN kernel's indices and squared distances equal the tiled search's bit
+for bit.
 """
 
 import numpy as np
@@ -36,6 +38,7 @@ from roitr_torch.kernels.geo_embedding_kernel import (
     geo_embedding_bwd_plain,
     geo_embedding_plain,
 )
+from roitr_torch.kernels.knn_kernel import knn, knn_plain, min_dist, min_dist_plain
 from roitr_torch.kernels.rpe_attention_kernel import (
     fused_rpe_self_attention,
     rpe_attention_bwd,
@@ -49,6 +52,7 @@ from roitr_torch.kernels.sinkhorn_kernel import (
     sinkhorn_iterate,
     sinkhorn_plain,
 )
+from roitr_torch.ops.neighbors import masked_knn
 from roitr_torch.ops.sinkhorn import sinkhorn_inputs
 
 pytestmark = pytest.mark.cuda
@@ -990,9 +994,10 @@ def test_packed_train_step_on_card_matches_cpu(dev, ppp, iters):
     torch.cuda.synchronize()
     launched = dict(kernels.launch_counts)
     layers = len(cfg.transformer_architecture)
+    # the kNN: the GT occlusion score's 1-NN both ways a pair (host pyramids)
     want = {"fps": 0, "geo_embedding": 2, "rpe_attention": layers, "rpe_attention_bwd": layers,
             "geo_embedding_bwd": 2, "sinkhorn": int(iters < 380),
-            "sinkhorn_bwd": int(iters < 380)}
+            "sinkhorn_bwd": int(iters < 380), "knn": 2 * len(arrs)}
     assert launched == want, launched
     lc, gc = _packed_grad_step(RoITr(cfg, device="cpu", seed=0), pairs("cpu"))
     for i, (a, b) in enumerate(zip(lg, lc)):
@@ -1174,3 +1179,97 @@ def test_torch_ransac_on_card_matches_numpy(dev):
     on_card = best_hypothesis(f(src).to(dev), f(tgt).to(dev), idx.to(dev), 0.05)
     on_cpu = best_hypothesis(f(src), f(tgt), idx, 0.05)
     assert on_card[2:] == on_cpu[2:]
+
+
+# ---- the kNN kernel against the tiled search it replaces on the card
+
+def _knn_clouds(seed, b, n, counts, ties):
+    """(b, n, 3) clouds in a 3 m cube, pad rows zero. `ties`: coordinates on
+    a 1/64 grid and a quarter of each cloud repeated, so equal squared
+    distances to different keys abound."""
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((b, n, 3), np.float32)
+    for i, c in enumerate(counts):
+        p = rng.rand(c, 3).astype(np.float32) * 3.0
+        if ties:
+            p = np.round(p * 64.0).astype(np.float32) / 64.0
+            p[c // 2:c // 2 + c // 4] = p[:c // 4]
+        pts[i, :c] = p
+    return pts
+
+
+# (b, q, n, k, exclude_self, counts, queries, ties): the main path's searches
+# at the 32768 bucket (device normals kk 33, the pyramid's self and cross
+# kk 9 and 17, the 3-NN upsampling), packed device prep (B 8 at 1024), and
+# counts below the list, below k + 1 and of 1
+KNN_CASES = {
+    "normals-b1": (1, 32768, 32768, 33, False, (30000,), "self", False),
+    "normals-b2": (2, 32768, 32768, 33, False, (26000, 21000), "self", False),
+    "self-kk9-32768": (2, 32768, 32768, 8, True, (26000, 21000), "self", False),
+    "cross-kk17-8192x32768": (2, 8192, 32768, 16, True, (26000, 21000), "cross", False),
+    "up-kk3-32768x8192": (2, 32768, 8192, 3, False, (6500, 5250), "cross", False),
+    "self-kk17-8192-ties": (1, 8192, 8192, 16, True, (6500,), "self", True),
+    "cross-kk9-2048x8192-ties": (2, 2048, 8192, 8, True, (6500, 5250), "cross", True),
+    "self-kk33-2048": (1, 2048, 2048, 32, True, (1625,), "self", False),
+    "cross-kk17-512x2048": (2, 512, 2048, 16, True, (1625, 1312), "cross", False),
+    "self-kk33-512-ties": (2, 512, 512, 33, False, (406, 328), "self", True),
+    "packed-b8-1024": (8, 1024, 1024, 8, True, (1000, 900, 700, 600, 8, 5, 1, 1024), "self",
+                       True),
+    "packed-b8-1024-kk3": (8, 1024, 1024, 3, False, (1000, 2, 1, 1024, 3, 700, 600, 4),
+                           "cross", False),
+    "kk2-short": (1, 300, 320, 2, False, (40,), "cross", False),
+    "short-counts-ties": (2, 70, 70, 16, True, (12, 1), "self", True),
+    "n-below-k1": (1, 20, 10, 16, True, (10,), "cross", False),
+    "n-below-k": (1, 20, 10, 16, False, (7,), "cross", False),
+}
+
+
+@pytest.mark.parametrize("case", list(KNN_CASES))
+def test_knn_kernel_matches_the_tiled_search(dev, case):
+    """Indices and squared distances bit for bit, one launch; masked_knn
+    returns their square roots. One-cloud cases pass 2-D tensors and a
+    Python count, the others a batch axis and a count a cloud on the
+    card."""
+    b, q, n, k, exclude_self, counts, queries, ties = KNN_CASES[case]
+    keys = _knn_clouds(1, b, n, counts, ties)
+    qs = keys if queries == "self" else _knn_clouds(2, b, q, (q,) * b, ties)
+    kt, qt = torch.from_numpy(keys).to(dev), torch.from_numpy(qs).to(dev)
+    count = torch.tensor(counts, device=dev)
+    if b == 1:
+        kt, qt, count = kt[0], qt[0], counts[0]
+    idx, d2 = _launched("knn", lambda: knn(qt, kt, count, k, exclude_self, squared=True))
+    ref_idx, ref_d2 = knn_plain(qt, kt, count, k, exclude_self)
+    assert idx.shape == ref_idx.shape and idx.dtype == torch.int64
+    rows = (idx != ref_idx).any(-1) | (d2.view(torch.int32) != ref_d2.view(torch.int32)).any(-1)
+    assert not rows.any(), f"{int(rows.sum())} of {rows.numel()} rows differ"
+    got_idx, dist = _launched("knn", lambda: masked_knn(qt, kt, count, k, exclude_self))
+    assert torch.equal(got_idx, ref_idx) and torch.equal(dist, torch.sqrt(ref_d2))
+
+
+@pytest.mark.parametrize("q,n,count,ties", [(26000, 21001, 21000, False),
+                                            (21001, 26000, 26000, False),
+                                            (4096, 4097, 4096, True), (300, 64, 1, False)])
+def test_min_dist_kernel_matches_the_tiled_search(dev, q, n, count, ties):
+    """The 1-NN distance of the GT occlusion score, both ways between a
+    pair's clouds (the partition's padded arrays: count + 1 rows): squared
+    distances bit for bit, one launch."""
+    keys = torch.from_numpy(_knn_clouds(3, 1, n, (min(count, n),), ties)[0]).to(dev)
+    qs = torch.from_numpy(_knn_clouds(4, 1, q, (q,), ties)[0]).to(dev)
+    cnt = torch.tensor(count, device=dev)
+    d2 = _launched("knn", lambda: min_dist(qs, keys, cnt, squared=True))
+    assert torch.equal(d2.view(torch.int32), min_dist_plain(qs, keys, cnt).view(torch.int32))
+
+
+def test_masked_knn_past_the_kernel_raises(dev):
+    """41 neighbours a query (k 40 under exclude_self) is more than the
+    kernel's lists hold: masked_knn and the kernel's entry refuse it on the
+    card and launch nothing; so does a float64 cloud."""
+    keys = torch.from_numpy(_knn_clouds(5, 1, 600, (550,), False)[0]).to(dev)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="kernel takes 1 to 33"):
+        masked_knn(keys, keys, 550, 40, exclude_self=True)
+    with pytest.raises(ValueError, match="kernel takes 1 to 33"):
+        knn(keys, keys, 550, 40, exclude_self=True)
+    with pytest.raises(TypeError, match="dtype"):
+        knn(keys.double(), keys.double(), 550, 8)
+    assert kernels.launch_counts["knn"] == before["knn"]

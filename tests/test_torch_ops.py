@@ -10,6 +10,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from roitr_torch import kernels
+from roitr_torch.kernels import knn_kernel
 from roitr_torch.ops import geometry as tg
 from roitr_torch.ops import neighbors as tn
 from roitr_torch.ops.fps import furthest_point_sampling, num_valid_samples
@@ -61,15 +63,40 @@ def test_calc_ppf(rng):
                                np.asarray(jg.calc_ppf(p, n, gp, gn)), **TOL)
 
 
-@pytest.mark.parametrize("count,k,exclude_self", [
-    (300, 16, True), (300, 8, False), (12, 16, True), (5, 16, True)])
-def test_masked_knn_indices_exact(rng, count, k, exclude_self):
+def _on_grid(pts, count):
+    """Coordinates on a 1/16 grid, so every squared distance is exact in
+    fp32 whatever the order of its terms, and a quarter of the valid points
+    repeated: ties between different keys abound."""
+    pts = np.round(pts * 16.0) / 16.0
+    pts[count // 2:count // 2 + count // 4] = pts[:count // 4]
+    return pts
+
+
+# (n, count, k, exclude_self, ties); the ids of the first four predate n and ties
+KNN_CASES = [(320, 300, 16, True, False), (320, 300, 8, False, False),
+             (320, 12, 16, True, False), (320, 5, 16, True, False),
+             (320, 300, 8, False, True), (320, 5, 16, True, True),
+             (64, 60, 40, True, False),  # 41 neighbours, more than the card kernel's lists
+             (10, 7, 16, False, False)]  # fewer keys than k
+KNN_IDS = ["300-16-True", "300-8-False", "12-16-True", "5-16-True", "ties-300-8-False",
+           "ties-5-16-True", "k40-60-True", "n10-7-16-False"]
+
+
+@pytest.mark.parametrize("n,count,k,exclude_self,ties", KNN_CASES, ids=KNN_IDS)
+def test_masked_knn_indices_exact(rng, n, count, k, exclude_self, ties):
     """Including the phantom-neighbor padding (count < k + 1: the trailing
-    slots are point 0 and stay valid neighbors)."""
-    keys = _cloud(rng, 320, count)
+    slots are point 0 and stay valid neighbors), ties (to the lower index,
+    as lax.top_k) and k past the kernel's lists: CPU tensors take the tiled
+    search and launch nothing."""
+    keys = _cloud(rng, n, count)
     queries = keys if exclude_self else rng.rand(90, 3).astype(np.float32)
+    if ties:
+        keys = _on_grid(keys, count)
+        queries = keys if exclude_self else _on_grid(queries, 90)
+    before = dict(kernels.launch_counts)
     idx, d = tn.masked_knn(_t(queries), _t(keys), torch.tensor(count), k,
                            exclude_self=exclude_self)
+    assert kernels.launch_counts == before
     jidx, jd = jn.masked_knn(queries, keys, count, k, exclude_self=exclude_self)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), **TOL)
@@ -78,7 +105,7 @@ def test_masked_knn_indices_exact(rng, count, k, exclude_self):
 def test_masked_knn_query_tiles_agree(rng, monkeypatch):
     keys = _cloud(rng, 256, 240)
     one, _ = tn.masked_knn(_t(keys), _t(keys), torch.tensor(240), 8, exclude_self=True)
-    monkeypatch.setattr(tn, "_TILE_ELEMS", 256 * 7)  # 7-query tiles, ragged last tile
+    monkeypatch.setattr(knn_kernel, "_TILE_ELEMS", 256 * 7)  # 7-query tiles, ragged last tile
     tiled, _ = tn.masked_knn(_t(keys), _t(keys), torch.tensor(240), 8, exclude_self=True)
     np.testing.assert_array_equal(one.numpy(), tiled.numpy())
 

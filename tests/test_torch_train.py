@@ -22,9 +22,9 @@ import torch
 from roitr_torch.config import Config
 from roitr_torch.data.loader import dict_to_pair, iterate_batches
 from roitr_torch.data.synthetic import SyntheticPairs
+from roitr_torch.kernels import knn_kernel
 from roitr_torch.losses import evaluate, gt_overlap_map, overall_loss
 from roitr_torch.models.matching import gt_coarse_corr_generator
-from roitr_torch.ops import neighbors
 from roitr_torch.ops.geometry import apply_transform
 from roitr_torch.ops.neighbors import masked_min_dist
 from roitr_torch.ops.partition import (
@@ -100,10 +100,18 @@ def test_apply_transform(rng):
 def test_masked_min_dist(rng, monkeypatch, tile_elems):
     """One tile, and many tiles of the query axis."""
     if tile_elems:
-        monkeypatch.setattr(neighbors, "_TILE_ELEMS", tile_elems)
+        monkeypatch.setattr(knn_kernel, "_TILE_ELEMS", tile_elems)
     q, keys = rng.randn(300, 3).astype(np.float32), rng.randn(257, 3).astype(np.float32)
     got = masked_min_dist(torch.from_numpy(q), torch.from_numpy(keys), torch.tensor(200))
     _assert_same(got, jneighbors.masked_min_dist(jnp.asarray(q), jnp.asarray(keys), 200))
+
+
+@pytest.mark.parametrize("q,n,count", [(257, 300, 300), (40, 16, 1)])
+def test_masked_min_dist_counts(rng, q, n, count):
+    """Every key valid, and a single valid key."""
+    qs, keys = rng.randn(q, 3).astype(np.float32), rng.randn(n, 3).astype(np.float32)
+    got = masked_min_dist(torch.from_numpy(qs), torch.from_numpy(keys), torch.tensor(count))
+    _assert_same(got, jneighbors.masked_min_dist(jnp.asarray(qs), jnp.asarray(keys), count))
 
 
 @pytest.mark.parametrize("max_candidates,chunk", [(128, 32), (256, 2048)])
