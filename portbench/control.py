@@ -33,15 +33,15 @@ def _tf32(on: bool) -> None:
 def readings(bench: dict, cell: str, seed: int, fault: str = "", device="cuda") -> dict:
     import torch
 
-    from portbench import harness, judge, pools
+    from portbench import harness, judge, models, pools
     from portbench.reference import ops, pipeline
-    from portbench.weights import make_state_dict
 
     ctx = harness.make_context(bench, cell, seed, device)
-    weights = make_state_dict(ctx.ref_cfg, seed, device)
+    weights = models.weights(ctx)
 
     def fresh():
-        return pipeline.build(ctx.ref_cfg, {k: v.clone() for k, v in weights.items()}, device)
+        return ctx.model.build_reference(ctx.ref_cfg, {k: v.clone() for k, v in weights.items()},
+                                         device)
 
     if ctx.traffic["driver"] == "match":
         pool = pools.request_pool(seed, ctx.traffic)

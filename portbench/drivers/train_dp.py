@@ -37,8 +37,7 @@ def _rank(rank: int, world: int, job: dict) -> dict:
     from roitr_torch.parallel.distributed import broadcast_parameters, lockstep
     from roitr_torch.parallel.train_step import make_optimizer, train_step
 
-    from portbench import harness
-    from portbench.weights import make_state_dict
+    from portbench import harness, models
 
     import os
 
@@ -49,13 +48,13 @@ def _rank(rank: int, world: int, job: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctx = harness.make_context(job["bench"], job["cell"], job["seed"], device, job["overrides"])
-    cfg = harness.program_config(ctx.values)
+    cfg = ctx.model.program_config(ctx.values)
     t = ctx.traffic
     k = cfg.normal_knn
     items = pools.train_items(ctx.seed, t, cfg.buckets, lambda p: normal_redirect_np(
         p, estimate_normals_np(p, k), (0.0, 0.0, 0.0)))
     model = RoITr(cfg, device=device)
-    model.load_state_dict(make_state_dict(ctx.ref_cfg, ctx.seed, device))
+    model.load_state_dict(models.weights(ctx))
     broadcast_parameters(model)
     model.train()
     optimizer = make_optimizer(cfg, model, steps_per_epoch=None)

@@ -3,9 +3,11 @@ the reference's check in its own process, and the result line.
 
 Everything a cell is made of is found by name: the cell's file
 (`workloads/<cell>.json`: its limits), its configuration
-(`configs/<config>.json`), its traffic (`traffic/<traffic>.json`, whose
-"driver" names the generator in `drivers/`), and each metric
-(`metrics/<name>.py`, which `BENCHMARK.json` lists for the cell).
+(`configs/<config>.json`, whose "model" names the module in `models/`
+that makes the weights, the reference and the program's config), its
+traffic (`traffic/<traffic>.json`, whose "driver" names the generator in
+`drivers/`), and each metric (`metrics/<name>.py`, which `BENCHMARK.json`
+lists for the cell).
 """
 
 from __future__ import annotations
@@ -70,29 +72,26 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> List[dict]:
 
 
 def make_context(bench: dict, cell: str, seed: int, device, overrides: Optional[dict] = None):
-    """Everything both sides share: the cell's files, both configurations
-    (the program's Config from the same values) and the seed."""
+    """Everything both sides share: the cell's files, its model's module,
+    the reference's configuration (the program's comes from the same
+    values) and the seed."""
+    from portbench import models
+
     entry = next(w for w in bench["workloads"] if w["name"] == cell)
     spec = load_json("workloads", f"{cell}.json")
-    values = dict(load_json("configs", f"{entry['config']}.json")["config"])
+    config = load_json("configs", f"{entry['config']}.json")
+    model_name = config.get("model", models.DEFAULT)
+    model = models.load(model_name, f"portbench/configs/{entry['config']}.json")
+    values = dict(config["config"])
     traffic = dict(load_json("traffic", f"{entry['traffic']}.json"))
     overrides = overrides or {}
     values.update(overrides.get("config", {}))
     traffic.update(overrides.get("traffic", {}))
-    from portbench.reference import pipeline
-
     return types.SimpleNamespace(cell=cell, entry=entry, spec=spec, values=values,
                                  traffic=traffic, seed=int(seed), device=device,
-                                 ref_cfg=pipeline.config(values), port_cfg=None,
+                                 model_name=model_name, model=model,
+                                 ref_cfg=model.reference_config(values), port_cfg=None,
                                  state_dict=None)
-
-
-def program_config(values: dict):
-    from roitr_torch.config import Config
-
-    fields = {f.name for f in dataclasses.fields(Config)}
-    kw = {k: (tuple(v) if isinstance(v, list) else v) for k, v in values.items() if k in fields}
-    return Config(**kw)
 
 
 def driver_module(ctx):
@@ -188,21 +187,28 @@ def measure(ctx, driver, seconds: float, trace: bool, t_start_age: float, log=pr
 
 # --------------------------------------------------------------- reference
 
+def reference_job(ctx, payload: dict) -> dict:
+    """What the reference's process is sent: the run's cell, seed, device,
+    model (by name: it lives outside the values), values, traffic and the
+    program's outputs."""
+    return {"cell": ctx.cell, "seed": ctx.seed, "device": str(ctx.device),
+            "model": ctx.model_name, "values": ctx.values, "traffic": ctx.traffic,
+            "payload": payload}
+
+
 def reference_numbers(ctx, payload: dict) -> Dict[str, float]:
     """The comparison, computed in a fresh process that holds the reference
-    and never the program (portbench/refproc.py); the payload goes over a
+    and never the program (portbench/refproc.py); the job goes over a
     pipe."""
     import multiprocessing as mp
 
     spawn = mp.get_context("spawn")
     parent, child = spawn.Pipe()
-    job = {"cell": ctx.cell, "seed": ctx.seed, "device": str(ctx.device), "values": ctx.values,
-           "traffic": ctx.traffic, "payload": payload}
     proc = spawn.Process(target=_refproc_entry, args=(child,))
     proc.start()
     child.close()
     try:
-        parent.send(job)
+        parent.send(reference_job(ctx, payload))
         reply = parent.recv()
     finally:
         proc.join(timeout=120)
@@ -254,17 +260,17 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool, dev
     """One run; returns the result dict (without printing it)."""
     import torch
 
-    from portbench.weights import make_state_dict
+    from portbench import models
 
     ctx = make_context(bench, cell, seed, device, overrides)
-    ctx.port_cfg = program_config(ctx.values)
+    ctx.port_cfg = ctx.model.program_config(ctx.values)
     module = driver_module(ctx)
     if hasattr(module, "run"):  # a driver of its own processes, one a chip
         run, payload = module.run(ctx, seconds, trace, t_start_age, bench, overrides, log)
     else:
         torch.manual_seed(seed)
         phases = [("imports and card", process_age_s())]
-        ctx.state_dict = make_state_dict(ctx.ref_cfg, seed, device)
+        ctx.state_dict = models.weights(ctx)
         phases.append(("weights", process_age_s()))
         driver = module.Driver(ctx)
         if device != "cpu":

@@ -1,8 +1,8 @@
-"""The reference's process: it receives a run's cell, seed and the
+"""The reference's process: it receives a run's cell, seed, model and the
 program's outputs over a pipe, makes the same weights and inputs from the
-seed, runs the reference (fp32, TF32 off) and answers with the compared
-numbers. It refuses to answer if the program or
-JAX has been loaded into it."""
+seed through the model's module (`models/<model>.py`), runs the reference
+(fp32, TF32 off) and answers with the compared numbers. It refuses to
+answer if the program or JAX has been loaded into it."""
 
 from __future__ import annotations
 
@@ -25,16 +25,17 @@ def numbers(job: dict) -> dict:
 
     import torch
 
+    from portbench import models
     from portbench.harness import loaded_forbidden
-    from portbench.reference import pipeline
-    from portbench.weights import make_state_dict
 
     device = torch.device(job["device"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    module = models.load(job["model"])
     ctx = types.SimpleNamespace(cell=job["cell"], seed=job["seed"], values=job["values"],
-                                traffic=job["traffic"], ref_cfg=pipeline.config(job["values"]))
-    model = pipeline.build(ctx.ref_cfg, make_state_dict(ctx.ref_cfg, ctx.seed, device), device)
+                                traffic=job["traffic"], device=device, model=module,
+                                ref_cfg=module.reference_config(job["values"]))
+    model = module.build_reference(ctx.ref_cfg, models.weights(ctx), device)
     driver = importlib.import_module(f"portbench.drivers.{ctx.traffic['driver']}")
     out = driver.reference_numbers(ctx, job["payload"], model, device)
     found = loaded_forbidden(extra=("roitr_torch",))

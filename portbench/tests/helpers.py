@@ -20,5 +20,5 @@ def context(cell: str, seed: int = SEED):
     from portbench import harness
 
     ctx = harness.make_context(bench(), cell, seed, "cpu", TINY)
-    ctx.port_cfg = harness.program_config(ctx.values)
+    ctx.port_cfg = ctx.model.program_config(ctx.values)
     return ctx

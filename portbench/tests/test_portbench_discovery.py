@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from portbench import harness
+from portbench import harness, models
 from portbench.harness import HERE, ROOT
 from portbench.tests.helpers import bench
 
@@ -39,12 +39,15 @@ def test_files_named_exist_and_are_found_by_name():
     for c in b["configs"]:
         path = ROOT / c["file"]
         assert path.is_file() and path.resolve().is_relative_to(HERE)
-        values = json.loads(path.read_text())["config"]
-        harness.program_config(values)  # every value is one the program takes
+        assert path == HERE / "configs" / f"{c['name']}.json"  # found by its name
+        config = json.loads(path.read_text())
+        model = models.load(config.get("model", models.DEFAULT), c["file"])
+        model.program_config(config["config"])  # every value is one the program takes
     for w in b["workloads"]:
         assert (HERE / "workloads" / f"{w['name']}.json").is_file()
         assert (HERE / "traffic" / f"{w['traffic']}.json").is_file()
         ctx = harness.make_context(b, w["name"], 1, "cpu")
+        assert ctx.model is models.load(ctx.model_name)
         module = harness.driver_module(ctx)
         assert hasattr(module, "Driver") or hasattr(module, "run")
         assert callable(module.reference_numbers)
@@ -54,8 +57,7 @@ def test_files_named_exist_and_are_found_by_name():
         assert mod.NAME == m["name"] and mod.UNIT == m["unit"] and callable(mod.read)
 
 
-@pytest.mark.parametrize("cell", ["3dmatch.match", "3dmatch.train", "4dmatch.train",
-                                  "3dmatch.train_dp4"])
+@pytest.mark.parametrize("cell", [w["name"] for w in bench()["workloads"]])
 def test_every_cell_reports_setup_another_end_to_end_and_a_layer(cell):
     b = bench()
     e2e = {m["name"] for m in harness.cell_metrics(b, cell, trace=False)}
@@ -72,6 +74,7 @@ def test_reference_and_harness_import_no_program():
 
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import portbench.harness, portbench.refproc, portbench.control, portbench.judge\n"
+            "import portbench.models, portbench.models.roitr\n"
             "import portbench.reference.pipeline, portbench.weights, portbench.trace\n"
             "import portbench.drivers.match, portbench.drivers.train, portbench.drivers.train_dp\n"
             "bad = {m.split('.')[0] for m in sys.modules} & "
