@@ -22,7 +22,8 @@ Phases, each of which exits non-zero on failure:
                N 16, B 2 at N 512; bit-equal to one-pair launches), and
                rows 2, 7, 4 and 5 at a packed train step's shapes; the kNN
                kernel against the tiled search at a request's searches
-               (indices and squared distances bit for bit)
+               (indices and squared distances bit for bit), and its
+               38-entry list (GeoTransformer's radius searches) beside 33's
   4. forward   one seeded pair at the 4096 bucket through RoITr on the card
                (kernels) and on the CPU (plain versions), same weights
   5. serving   Matcher.match at full 3DMatch width on three synthetic pairs
@@ -134,6 +135,17 @@ Phases, each of which exits non-zero on failure:
                mode in a subprocess from a copy of configs/test/tdmatch.yaml
                (knn_method approx) with the trained weights as a reference
                RoITr .pth; its dumps equal an in-process Tester's by sha256
+  21. geotransformer  Config(model="geotransformer") through
+               Matcher(prep="device").match on three 20k-30k-point pairs:
+               launches required exactly (the kNN kernel's radius searches,
+               2 embeddings, 6 RPE attentions, 1 Sinkhorn a request), the
+               transform a rotation, walls, stage sizes, peak memory; each
+               request's pyramid on the kNN kernel against the same built
+               on the card through the tiled search (stages and all 9
+               searches bit for bit); one pair's stages against the CPU's
+               (bit for bit) and the CPU forward on the card's pyramid
+               (features within 1e-4). Phase 3's kNN row also times the
+               38-entry list (the stage-1 radius search) beside 33's
 The phases before [workers] prepare pairs in process (num_workers 0).
 It then prints one JSON line with each kernel's numbers, the card's name
 and power limit, and last the result line
@@ -257,8 +269,14 @@ def phase_build():
         return next((k for k in ("sinkhorn_lines_fwd", "sinkhorn_lines_bwd", "sinkhorn_bwd_kernel",
                                  "sinkhorn_kernel") if k in mangled), None)
 
+    def knn_label(mangled):
+        if "knn_kernel" not in mangled:
+            return None
+        cap = mangled.split("knn_kernelILi", 1)[1].split("E", 1)[0]
+        return f"knn_kernel<{cap}, {'dot' if 'ELi0EE' in mangled else 'diff'}>"
+
     for source, name_of in (("geo_embedding", label), ("rpe_attention", rpe_label),
-                            ("sinkhorn", sinkhorn_label)):
+                            ("sinkhorn", sinkhorn_label), ("knn", knn_label)):
         current = None
         for line in reports[source].splitlines():
             if "Compiling entry function" in line:
@@ -708,6 +726,18 @@ def knn_row(rows, tag):
         ms, plain_ms = ms + t, plain_ms + tp
         print(f"{tag} knn 1-NN distance {x.shape[0]} x {y.shape[0]}: kernel {t:.3f} ms, tiled "
               f"{tp:.2f} ms; d^2 equal", flush=True)
+    # GeoTransformer's stage-1 radius search (limit 38, ops/grid.py) beside the
+    # normals' 33 on the same clouds; not part of RoITr's set
+    keys = clouds(32768, counts)
+    cnt = torch.tensor(counts, device=dev)
+    idx, d2 = knn(keys, keys, cnt, 38, squared=True)
+    if not all(torch.equal(a, b) for a, b in zip((idx, d2), knn_plain(keys, keys, cnt, 38))):
+        fail("knn kernel differs from the tiled search at 38 neighbours")
+    t38 = cuda_ms(lambda: knn(keys, keys, cnt, 38), 20)
+    t33 = cuda_ms(lambda: knn(keys, keys, cnt, 33), 20)
+    print(f"{tag} knn kk 38 (GeoTransformer's stage-1 radius search, B 2, 32768 x 32768, "
+          f"{counts} valid): kernel {t38:.3f} ms beside kk 33 {t33:.3f} ms; indices and d^2 "
+          f"equal", flush=True)
     b_ms, b_by = bound(byt, ops)
     print(f"{tag} knn the set: kernel {ms:.3f} ms, tiled {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
           f"({b_by}: {ops:.4g} fp32 operations); max abs err of the distances {err:.3g}",
@@ -3102,6 +3132,109 @@ def phase_cli(rng, main):
         fail(f"[cli] Tester launches {launches} (expected {want}), dumps equal {same}")
 
 
+def phase_geotransformer():
+    """GeoTransformer (`Config(model="geotransformer")`) through
+    `Matcher(prep="device").match` on three 20k-30k-point pairs: launches
+    held exactly (the kNN kernel `GRID_SEARCHES` a request, the
+    embedding 2, the RPE attention 6, Sinkhorn 1, no FPS, no backward), a
+    rigid transform, walls; then each request's pyramid, its 9 searches
+    included, against the same built through the tiled search, bit for bit,
+    and one pair's stages and forward on the card against the CPU's."""
+    from roitr_torch.config import Config
+    from roitr_torch.data.synthetic import make_pair_arrays
+    from roitr_torch.kernels import launch_counts, reset_launch_counts
+    from roitr_torch.kernels.knn_kernel import knn_plain
+    from roitr_torch.models.geotransformer import GeoTransformer
+    from roitr_torch.ops import grid
+    from roitr_torch.ops.grid import GRID_SEARCHES, build_grid_pyramid
+    from roitr_torch.serving import Matcher
+
+    rng = np.random.RandomState(20)
+    cfg = Config(model="geotransformer", geo_embedding_storage="fp32",
+                 fine_matching_confidence_threshold=0.0)
+    state = GeoTransformer(cfg, device="cpu").state_dict()
+    matcher = Matcher(cfg, state, device="cuda", descriptors=True, prep="device")
+    clouds = []
+    for n, m in ((30000, 26000), (25000, 28000), (20000, 24800)):
+        arr = make_pair_arrays(rng, 32768, n, m)
+        clouds.append((arr["src_points"][:n], arr["tgt_points"][:m]))
+    matcher.match(*clouds[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i, (src, tgt) in enumerate(clouds):
+        t0 = time.perf_counter()
+        out = matcher.match(src, tgt)
+        wall = (time.perf_counter() - t0) * 1e3
+        rot = out["transform"][:3, :3].astype(np.float64)
+        if not (np.allclose(rot @ rot.T, np.eye(3), atol=1e-5) and np.linalg.det(rot) > 0.999):
+            fail("[geotransformer] the transform is not a rotation")
+        print(f"[geotransformer] request {i}: {len(src)} + {len(tgt)} points, wall {wall:.1f} ms, "
+              f"stage 2 {len(out['tgt_points'])} + {len(out['src_points'])}, stage 4 "
+              f"{len(out['tgt_nodes'])} + {len(out['src_nodes'])} nodes, "
+              f"{len(out['confidence'])} correspondences", flush=True)
+    launches = dict(launch_counts)
+    want = {k: 0 for k in launches}
+    want.update(knn=3 * GRID_SEARCHES, geo_embedding=6, rpe_attention=18, sinkhorn=3)
+    print(f"[geotransformer] max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches over 3 requests: "
+          f"{launches}", flush=True)
+    if launches != want:
+        fail(f"[geotransformer] launches {launches}, expected {want}")
+    # each request's pyramid on the kNN kernel against the same pyramid built
+    # on the card through the tiled search (`knn_plain`, which the kernel
+    # equals bit for bit, phase 3): stages and all of its searches at their
+    # real shapes, bit for bit. Then one pair's stages against the CPU's, bit
+    # for bit (the CPU's searches round x^2 - 2xy + y^2 apart from the
+    # card's, so they are not held), and the CPU forward on the card's
+    # pyramid, so that its features answer for the model alone
+    def tiled(queries, keys, key_count, k):
+        idx, d2 = knn_plain(queries, keys, key_count, k)
+        return idx, torch.sqrt(d2)
+
+    fields = ("points", "neighbors", "subsampling", "upsampling")
+    searches = rows = 0
+    with torch.no_grad():
+        for src, tgt in clouds:
+            points = torch.from_numpy(np.concatenate([tgt, src])).cuda()
+            lengths = (len(tgt), len(src))
+            pyr = build_grid_pyramid(points, lengths, cfg)
+            kernel, grid.masked_knn = grid.masked_knn, tiled
+            try:
+                plain = build_grid_pyramid(points, lengths, cfg)
+            finally:
+                grid.masked_knn = kernel
+            for name in fields:
+                for s, (a, b) in enumerate(zip(getattr(pyr, name), getattr(plain, name))):
+                    if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                        fail(f"[geotransformer] {name}[{s}] on the kNN kernel differs from the "
+                             f"tiled search's ({len(src)} + {len(tgt)} points)")
+                    if a is not None and name != "points":
+                        searches, rows = searches + 1, rows + len(a)
+        if searches != 3 * GRID_SEARCHES:
+            fail(f"[geotransformer] {searches} searches held, expected {3 * GRID_SEARCHES}")
+        host = build_grid_pyramid(points.cpu(), lengths, cfg)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(pyr.points, host.points)):
+            fail("[geotransformer] card and CPU grid stages differ")
+        cpu = GeoTransformer(cfg, device="cpu")
+        cpu.load_state_dict(state)
+        moved = type(pyr)(*([None if t is None else t.cpu() for t in field]
+                            if name != "lengths" else field
+                            for name, field in zip(pyr._fields, pyr)))
+        got = matcher.model(pyr)
+        want_out = cpu(moved)
+    errs = {}
+    for key in ("tgt_point_feats", "src_point_feats", "tgt_node_feats", "src_node_feats"):
+        ref = want_out[key].double()
+        errs[key] = float((got[key].cpu().double() - ref).abs().max() / ref.abs().max())
+    print(f"[geotransformer] the kNN kernel against the tiled search: {searches} searches of 3 "
+          f"requests, {rows} rows, and the stages bit for bit; card against CPU: stages equal, "
+          f"on the card's pyramid the features' largest error over the largest value "
+          f"{max(errs.values()):.3g}", flush=True)
+    if max(errs.values()) > 1e-4:
+        fail(f"[geotransformer] card and CPU features differ: {errs}")
+
+
 SOURCES = {
     "fps": ("roitr_torch/csrc/fps.cu", "roitr_tpu/ops/pallas/fps_kernel.py:47"),
     "geo_embedding": ("roitr_torch/csrc/geo_embedding.cu",
@@ -3147,6 +3280,7 @@ def main() -> int:
     phase_registration(rng)
     phase_sinkhorn_tol(rng)
     phase_cli(rng, later)
+    phase_geotransformer()
 
     kernels = []
     for name, row in rows.items():

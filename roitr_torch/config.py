@@ -23,6 +23,11 @@ class Config:
     seed: int = 42
 
     # ---- model ----
+    # the architecture Matcher builds: "roitr" (models/roitr.py) or
+    # "geotransformer" (models/geotransformer.py: a KPConv-FPN backbone on a
+    # grid pyramid, the geometric transformer without positional states,
+    # local-to-global registration)
+    model: str = "roitr"
     pretrain: str = ""
     transformer_architecture: Sequence[str] = (
         "self", "cross", "self", "cross", "self", "cross",
@@ -43,6 +48,32 @@ class Config:
     # and the global transformer computes in (fp32 parameters); geometry,
     # the geometric embedding, descriptors, OT and losses stay fp32
     compute_dtype: str = "float32"
+
+    # ---- GeoTransformer (model "geotransformer"), as its 3DMatch experiment
+    # (geotransformer.3dmatch.stage4.gse.k3.max.oacl.stage2.sinkhorn) sets it.
+    # The grid pyramid (four stages, ops/grid.py): stage 1 the input, stage
+    # s > 1 the barycentres of the occupied voxels of stage s - 1 at
+    # voxel_size * 2^(s-1); radius neighbours at base_radius * voxel_size *
+    # 2^(s-1), the nearest neighbor_limits[s] kept. KPConv: kernel_size
+    # points, sigma base_sigma * voxel_size, doubling with the radius;
+    # GroupNorm of group_norm groups; widths init_dim -> 16 * init_dim, fine
+    # features output_dim. The transformer maps the stage-4 width, 16 *
+    # init_dim, to 256 and reuses num_heads and transformer_architecture; the matching head reuses
+    # point_per_patch, num_est_coarse_corr, sinkhorn_iters and fine_matching_*
+    # (fine_matching_correspondence_threshold: the correspondences a patch
+    # needs to give a registration hypothesis)
+    voxel_size: float = 0.025
+    kernel_size: int = 15
+    base_radius: float = 2.5
+    base_sigma: float = 2.0
+    group_norm: int = 32
+    init_dim: int = 64
+    output_dim: int = 256
+    neighbor_limits: Sequence[int] = (38, 36, 36, 38)
+    # local-to-global registration: inlier residual, and the weighted
+    # Procrustes rounds after the hypothesis is chosen
+    acceptance_radius: float = 0.1
+    num_refinement_steps: int = 5
 
     # ---- optim ----
     optimizer: str = "adam"

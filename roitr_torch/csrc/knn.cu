@@ -52,8 +52,10 @@ constexpr int kThreads = 256;
 constexpr int kTile = 512;  // keys a shared-memory tile
 constexpr float kPad = 1e10f;  // distance of pad keys and phantom slots
 // list sizes the kernel is compiled for; a search of kk neighbours takes the
-// smallest that holds kk (kernels/knn_kernel.py CAPACITIES mirrors these)
-constexpr int kCapacities[] = {1, 3, 9, 17, 33};
+// smallest that holds kk (kernels/knn_kernel.py CAPACITIES mirrors these):
+// 9, 17 and 33 are RoITr's k + 1 searches and its normals, 38 the largest
+// radius-neighbour limit of GeoTransformer's grid pyramid (ops/grid.py)
+constexpr int kCapacities[] = {1, 3, 9, 17, 33, 38};
 
 enum Form { kDot = 0, kDiff = 1 };
 
@@ -280,8 +282,11 @@ int roitr_knn(const float* queries, const float* keys, const int* counts, int ba
     case 17:
       return launch<17>(form, grid, stream, queries, keys, counts, q_len, n, group_log2,
                         kk, cols, exclude_self, squared, out_idx, out_dist);
-    default:
+    case 33:
       return launch<33>(form, grid, stream, queries, keys, counts, q_len, n, group_log2,
+                        kk, cols, exclude_self, squared, out_idx, out_dist);
+    default:
+      return launch<38>(form, grid, stream, queries, keys, counts, q_len, n, group_log2,
                         kk, cols, exclude_self, squared, out_idx, out_dist);
   }
 }

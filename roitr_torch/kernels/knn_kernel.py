@@ -31,7 +31,7 @@ _INF = 1e10
 # int64 sort keys)
 _TILE_ELEMS = 1 << 25
 # list sizes the kernel is compiled for (csrc/knn.cu kCapacities)
-CAPACITIES = (1, 3, 9, 17, 33)
+CAPACITIES = (1, 3, 9, 17, 33, 38)
 # lanes a query double while a search gives each SM fewer than this many
 # threads, so a plan lands at 192-384 threads an SM: the fastest group size
 # of each row of a sweep on the H100 (248 an SM at 16384 x 32768 keys and

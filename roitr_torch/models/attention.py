@@ -155,11 +155,9 @@ class GlobalRPESelfAttention(nn.Module):
         self.proj_p = nn.Linear(d_model, d_model)
         self.proj_vp = nn.Linear(d_model, d_model)
 
-    def forward(self, x, embed, key_mask=None):
-        """x (N, d), embed (N, N, d) (fp32 or bf16), key_mask (N,) ->
-        hidden (N, d), pos_states (N, d); or all with a leading pair axis
-        (B, ...), one kernel launch for the B pairs. hidden is in x's dtype,
-        pos_states in fp32 (the JAX package's bf16 x fp32 promotion)."""
+    def attend(self, x, embed, key_mask=None):
+        """(hidden (..., N, d) fp32, ae (..., N, H, d)): the kernel's two
+        outputs, from the q, k, v and p projections."""
         n, d = x.shape[-2:]
         lead = x.shape[:-2]
         h = self.num_heads
@@ -174,8 +172,19 @@ class GlobalRPESelfAttention(nn.Module):
                  if key_mask is None else key_mask.to(torch.float32))
         kernel = supported_heads(h) and supported_width(d)
         attend = rpe_attention if kernel else rpe_attention_plain
-        hidden, ae = attend(q2.contiguous(), k2.contiguous(), v2.contiguous(), qwp,
-                            embed.contiguous(), fmask.contiguous())
+        return attend(q2.contiguous(), k2.contiguous(), v2.contiguous(), qwp,
+                      embed.contiguous(), fmask.contiguous())
+
+    def forward(self, x, embed, key_mask=None):
+        """x (N, d), embed (N, N, d) (fp32 or bf16), key_mask (N,) ->
+        hidden (N, d), pos_states (N, d); or all with a leading pair axis
+        (B, ...), one kernel launch for the B pairs. hidden is in x's dtype,
+        pos_states in fp32 (the JAX package's bf16 x fp32 promotion)."""
+        n, d = x.shape[-2:]
+        lead = x.shape[:-2]
+        h = self.num_heads
+        c = d // h
+        hidden, ae = self.attend(x, embed, key_mask)
         wvp_h = self.proj_vp.weight.t().reshape(d, h, c)
         ae = ae.to(x.dtype).float()  # rounded to the compute dtype, as JAX's
         pos = torch.einsum("...nhd,dhc->...nhc", ae, wvp_h) + self.proj_vp.bias.reshape(h, c)
@@ -213,6 +222,44 @@ class RPESelfLayer(nn.Module):
     def forward(self, x, embed, key_mask=None):
         out, pos = self.attention(x, embed, key_mask)
         return self.output(out), self.pos_proj(pos)
+
+
+class GeoRPEAttention(GlobalRPESelfAttention):
+    """GeoTransformer's RPEMultiHeadAttention: the scores and hidden states
+    of GlobalRPESelfAttention, on the same kernel, with no positional
+    states (no proj_vp); the kernel's second output is dropped."""
+
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
+        super().__init__(d_model, num_heads, dtype)
+        del self.proj_vp
+
+    def forward(self, x, embed, key_mask=None):
+        return self.attend(x, embed, key_mask)[0].to(x.dtype)
+
+
+class GeoRPESelfLayer(nn.Module):
+    """GeoTransformer's RPETransformerLayer: RPE attention, linear,
+    LayerNorm(residual), then the feed-forward block; no positional
+    stream."""
+
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.attention = _GeoRPEAttentionLayer(d_model, num_heads, dtype)
+        self.output = AttentionOutput(d_model, dtype)
+
+    def forward(self, x, embed, key_mask=None):
+        return self.output(self.attention(x, embed, key_mask))
+
+
+class _GeoRPEAttentionLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.attention = GeoRPEAttention(d_model, num_heads, dtype)
+        self.linear = Linear(d_model, d_model, dtype)
+        self.norm = LayerNorm(d_model, dtype)
+
+    def forward(self, x, embed, key_mask=None):
+        return self.norm(self.linear(self.attention(x, embed, key_mask)) + x)
 
 
 class CrossAttention(nn.Module):

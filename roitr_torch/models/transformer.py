@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from roitr_torch.models.attention import CrossAttentionLayer, RPESelfLayer
+from roitr_torch.models.attention import CrossAttentionLayer, GeoRPESelfLayer, RPESelfLayer
 from roitr_torch.models.embeddings import GeometricStructureEmbedding
 from roitr_torch.models.layers import Linear
 
@@ -33,6 +33,10 @@ class GeometricTransformer(nn.Module):
     """embedding -> in_proj -> [self|cross]* -> out_proj
     (reference geotransformer.py:56-133).
 
+    `positional` False builds GeoTransformer's transformer: self blocks
+    without the positional stream (attention.py `GeoRPESelfLayer`) and
+    cross blocks with no positions on q and k.
+
     `embedding_storage` is the dtype the (N, N, hidden) geometric embedding
     is stored in: "bf16" (default) halves the bytes the RPE attention
     reads, at one rounding of the stored tensor; "fp32" keeps the
@@ -43,19 +47,22 @@ class GeometricTransformer(nn.Module):
 
     def __init__(self, input_dim: int, output_dim: int, hidden_dim: int, num_heads: int,
                  blocks: Sequence[str], sigma_d: float = 0.2, sigma_a: float = 15.0,
-                 angle_k: int = 3, embedding_storage: str = "bf16", dtype=torch.float32):
+                 angle_k: int = 3, embedding_storage: str = "bf16", dtype=torch.float32,
+                 positional: bool = True):
         super().__init__()
         if embedding_storage not in _STORAGE:
             raise ValueError(f"embedding_storage must be 'bf16' or 'fp32', got "
                              f"{embedding_storage!r}")
         self.blocks = tuple(blocks)
+        self.positional = positional
         self.store = _STORAGE[embedding_storage]
         self.embedding = GeometricStructureEmbedding(hidden_dim, sigma_d, sigma_a, angle_k)
         self.in_proj = Linear(input_dim, hidden_dim, dtype)
         layers = []
         for block in self.blocks:
             if block == "self":
-                layers.append(RPESelfLayer(hidden_dim, num_heads, dtype))
+                self_layer = RPESelfLayer if positional else GeoRPESelfLayer
+                layers.append(self_layer(hidden_dim, num_heads, dtype))
             elif block == "cross":
                 layers.append(CrossAttentionLayer(hidden_dim, num_heads, dtype))
             else:
@@ -71,7 +78,10 @@ class GeometricTransformer(nn.Module):
         feats1 = self.in_proj(src_feats)
         pos0 = pos1 = None
         for block, layer in zip(self.blocks, self.transformer.layers):
-            if block == "self":
+            if block == "self" and not self.positional:
+                feats0 = layer(feats0, ref_embed, ref_masks)
+                feats1 = layer(feats1, src_embed, src_masks)
+            elif block == "self":
                 feats0, pos0 = layer(feats0, ref_embed, ref_masks)
                 feats1, pos1 = layer(feats1, src_embed, src_masks)
             else:

@@ -35,7 +35,9 @@ from roitr_torch.data.preprocess import (
     pick_bucket,
 )
 from roitr_torch.data.pyramid import build_cloud_pyramid, pyramid_to_torch
+from roitr_torch.models.geotransformer import GeoTransformer
 from roitr_torch.models.roitr import PairInputs, RoITr
+from roitr_torch.ops.grid import build_grid_pyramid
 from roitr_torch.ops.pyramid import device_prep_packed, device_prep_pair
 from roitr_torch.train.checkpoint import load_model_state
 from roitr_torch.utils.packing import to_device
@@ -51,6 +53,18 @@ def _corr_pack(out: Dict[str, torch.Tensor]) -> torch.Tensor:
                       out["corr_masks"].to(torch.float32)[..., None]], dim=-1)
 
 
+# GeoTransformer's descriptors under `descriptors=True`: (result key,
+# forward output key); the stage-2 points and fine features, the stage-4
+# nodes and normalised coarse features
+_GEO_DESCRIPTORS = (
+    ("tgt_points", "tgt_points"), ("src_points", "src_points"),
+    ("tgt_nodes", "tgt_nodes"), ("src_nodes", "src_nodes"),
+    ("tgt_point_desc", "tgt_point_feats"), ("src_point_desc", "src_point_feats"),
+    ("tgt_node_desc", "tgt_node_feats"), ("src_node_desc", "src_node_feats"),
+)
+MODELS = ("roitr", "geotransformer")
+
+
 def _corr_unpack(corr: np.ndarray) -> Dict[str, np.ndarray]:
     """One pair's (C, 8) rows -> the trimmed result dict of `match`."""
     keep = corr[:, 7] > 0.5
@@ -59,7 +73,9 @@ def _corr_unpack(corr: np.ndarray) -> Dict[str, np.ndarray]:
 
 
 class Matcher:
-    """Serving wrapper around the RoITr pipeline."""
+    """Serving wrapper around the pipeline `cfg.model` names: RoITr, or
+    GeoTransformer (device prep only), whose result adds the estimated
+    `transform` (4, 4), source onto target."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor], device="cuda",
                  descriptors: bool = False, prep: str = "host"):
@@ -69,13 +85,21 @@ class Matcher:
         gives are always used. With `cfg.host_pyramid` and prep="host",
         each pair's FPS/kNN pyramids are built on the host (data/pyramid.py)
         and the forward runs no search; under prep="device" the device
-        builds them (a packed batch) or the backbone does (one pair)."""
+        builds them (a packed batch) or the backbone does (one pair).
+        GeoTransformer builds its grid pyramid and radius searches on the
+        device (ops/grid.py) and takes prep="device" only."""
         if prep not in ("host", "device"):
             raise ValueError(f"unknown prep mode {prep!r}")
+        if cfg.model not in MODELS:
+            raise ValueError(f"cfg.model must be one of {MODELS}, got {cfg.model!r}")
+        if cfg.model == "geotransformer" and prep != "device":
+            raise ValueError("GeoTransformer builds its grid pyramid on the device: "
+                             "use prep='device'")
         self.cfg = cfg
         self.descriptors = descriptors
         self.prep = prep
-        self.model = RoITr(cfg, device=device)
+        model = GeoTransformer if cfg.model == "geotransformer" else RoITr
+        self.model = model(cfg, device=device)
         self.model.load_state_dict(state_dict)
         self.model.eval()
         self.device = self.model.device
@@ -148,7 +172,12 @@ class Matcher:
 
         Returns src_corr_pts/tgt_corr_pts (C, 3) and confidence (C,), C
         data-dependent; with descriptors=True also the node and point
-        descriptors, trimmed to the valid counts."""
+        descriptors, trimmed to the valid counts. GeoTransformer's adds
+        the transform (4, 4); its descriptors are the stage-2 points and
+        fine features and the stage-4 nodes and normalised coarse
+        features."""
+        if self.cfg.model == "geotransformer":
+            return self._match_geo(src_pcd, tgt_pcd)
         dev = self.device
         with span("request", dev):
             with span("request.h2d", dev):
@@ -160,6 +189,34 @@ class Matcher:
                 out = self.model(pair)
             with span("request.d2h", dev):
                 return self._read(out)
+
+    def _match_geo(self, src_pcd: np.ndarray, tgt_pcd: np.ndarray) -> Dict[str, np.ndarray]:
+        """GeoTransformer's request: cap, one pinned copy of both clouds
+        stacked (target first), the grid pyramid and its searches, the
+        forward, one copy back of every output."""
+        dev = self.device
+        with span("request", dev):
+            with span("request.h2d", dev):
+                src_pcd, tgt_pcd, _, _ = self._cap(src_pcd, tgt_pcd, None, None)
+                points = to_device(torch.from_numpy(np.concatenate([tgt_pcd, src_pcd])), dev)
+            with span("request.prep", dev):
+                pyr = build_grid_pyramid(points, (len(tgt_pcd), len(src_pcd)), self.cfg)
+            with span("request.forward", dev):
+                out = self.model(pyr)
+            with span("request.d2h", dev):
+                parts = [_corr_pack(out), out["transform"]]
+                if self.descriptors:
+                    parts += [out[key] for _, key in _GEO_DESCRIPTORS]
+                flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+                corr = flat[:parts[0].numel()].reshape(-1, 8)
+                ofs = parts[0].numel()
+                res = _corr_unpack(corr)
+                res["transform"] = flat[ofs:ofs + 16].reshape(4, 4)
+                ofs += 16
+                for (name, _), p in zip(_GEO_DESCRIPTORS, parts[2:]):
+                    res[name] = flat[ofs:ofs + p.numel()].reshape(tuple(p.shape))
+                    ofs += p.numel()
+                return res
 
     def _read(self, out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """One forward's output -> the trimmed numpy result of `match`."""
@@ -233,6 +290,8 @@ class Matcher:
         without descriptors."""
         if mode not in ("auto", "packed", "map"):
             raise ValueError(f"unknown match_batch mode {mode!r}")
+        if self.cfg.model != "roitr":
+            raise ValueError("match_batch runs RoITr only; call match for each pair")
         if not self.cfg.host_pyramid and self.prep != "device":
             raise ValueError("match_batch requires cfg.host_pyramid=True or prep='device'")
         dev = self.device

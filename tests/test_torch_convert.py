@@ -109,7 +109,9 @@ def test_entry_point_without_card_raises():
                                     "configs/test/fdmatch.yaml", "configs/train/tdmatch.yaml"])
 def test_config_copy_matches_jax_config(source):
     """The port's own Config / load_config give the JAX package's fields and
-    values, for both benchmarks' defaults and the repo's YAML files."""
+    values, for both benchmarks' defaults and the repo's YAML files; the
+    port's further fields are GeoTransformer's (model "roitr" by default),
+    which no RoITr path reads."""
     import dataclasses
 
     from roitr_torch.config import load_config
@@ -121,4 +123,10 @@ def test_config_copy_matches_jax_config(source):
         got, want = load_config(path), jax_load_config(path)
     else:
         got, want = Config(benchmark=source), JaxConfig(benchmark=source)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+    extra = {k: got.pop(k) for k in set(got) - set(want)}
+    assert got == want
+    assert extra == {"model": "roitr", "voxel_size": 0.025, "kernel_size": 15,
+                     "base_radius": 2.5, "base_sigma": 2.0, "group_norm": 32, "init_dim": 64,
+                     "output_dim": 256, "neighbor_limits": (38, 36, 36, 38),
+                     "acceptance_radius": 0.1, "num_refinement_steps": 5}

@@ -1266,9 +1266,9 @@ def test_masked_knn_past_the_kernel_raises(dev):
     card and launch nothing; so does a float64 cloud."""
     keys = torch.from_numpy(_knn_clouds(5, 1, 600, (550,), False)[0]).to(dev)
     before = dict(kernels.launch_counts)
-    with pytest.raises(ValueError, match="kernel takes 1 to 33"):
+    with pytest.raises(ValueError, match="kernel takes 1 to 38"):
         masked_knn(keys, keys, 550, 40, exclude_self=True)
-    with pytest.raises(ValueError, match="kernel takes 1 to 33"):
+    with pytest.raises(ValueError, match="kernel takes 1 to 38"):
         knn(keys, keys, 550, 40, exclude_self=True)
     with pytest.raises(TypeError, match="dtype"):
         knn(keys.double(), keys.double(), 550, 8)

@@ -22,8 +22,8 @@ def test_supported_k_mirrors_the_source():
     src = (Path(knn_kernel.__file__).parents[1] / "csrc" / "knn.cu").read_text()
     listed = re.search(r"constexpr int kCapacities\[\] = \{([^}]*)\};", src).group(1)
     assert tuple(int(c) for c in listed.split(",")) == CAPACITIES
-    assert supported_k(1) and supported_k(3) and supported_k(33)
-    assert not supported_k(34) and not supported_k(0)
+    assert supported_k(1) and supported_k(3) and supported_k(33) and supported_k(38)
+    assert not supported_k(39) and not supported_k(0)
 
 
 # (queries, keys, k, exclude_self) -> the plan on a 132-SM card: the main
@@ -47,8 +47,8 @@ def test_knn_launch_plan(q_shape, k_shape, k, exclude_self, plan):
     ((3,), (10, 3), 3, False, "must end in 3"),
     ((2, 10, 3), (3, 10, 3), 3, False, "batch axes"),
     ((10, 3), (10, 3), 0, False, "below 1"),
-    ((40, 3), (40, 3), 33, True, "kernel takes 1 to 33"),
-    ((10, 3), (0, 3), 3, False, "kernel takes 1 to 33"),
+    ((40, 3), (40, 3), 38, True, "kernel takes 1 to 38"),
+    ((10, 3), (0, 3), 3, False, "kernel takes 1 to 38"),
 ])
 def test_knn_launch_plan_refuses(q_shape, k_shape, k, exclude_self, match):
     with pytest.raises(ValueError, match=match):

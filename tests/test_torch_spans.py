@@ -79,6 +79,35 @@ def test_matcher_request_spans_nest_tile_and_reach_the_chrome_trace(tmp_path):
                                     "model.matching", "model.ot", "knn", "fps"} <= names
 
 
+def test_geotransformer_request_spans_nest_and_tile():
+    """GeoTransformer's request: the prep span holds the grid pyramid's
+    radius searches, the forward tiles into backbone (one `kpconv` a
+    KPConv), transformer, matching (with the OT) and registration."""
+    from portbench import pools
+    from roitr_torch.models.geotransformer import GeoTransformer
+    from roitr_torch.ops.grid import GRID_SEARCHES
+
+    cfg = Config(model="geotransformer", fine_matching_confidence_threshold=0.0)
+    matcher = Matcher(cfg, GeoTransformer(cfg, device="cpu").state_dict(), device="cpu",
+                      prep="device")
+    src, tgt = pools.request_pool(5, {"points": [900, 1100], "pool": 1, "overlap": 0.7})[0]
+    reset_spans()
+    _profiled(lambda: matcher.match(src, tgt))
+    recs = span_records()
+    (request,) = [r for r in recs if r.name == "request"]
+    children = lambda parent: [r.name for r in recs if r.parent is parent]  # noqa: E731
+    assert children(request) == ["request.h2d", "request.prep", "request.forward", "request.d2h"]
+    forward = next(r for r in recs if r.name == "request.forward")
+    assert children(forward) == ["model.backbone", "model.transformer", "model.matching",
+                                 "model.lgr"]
+    backbone = next(r for r in recs if r.name == "model.backbone")
+    assert children(backbone) == ["kpconv"] * 11
+    prep = next(r for r in recs if r.name == "request.prep")
+    assert children(prep) == ["knn"] * GRID_SEARCHES
+    assert "model.ot" in children(next(r for r in recs if r.name == "model.matching"))
+    assert all(r.root == request.root for r in recs)
+
+
 def test_nested_same_name_counts_once_and_the_ring_is_bounded(monkeypatch):
     reset_spans()
     laps = {}
@@ -133,6 +162,10 @@ SPAN_METRICS = {  # metric: (span, field, per request)
     "enqueue_ms.match": ("request.forward", "host_ms", True),
     "knn_ms.train": ("knn", "device_ms", False),
     "loader_wait_ms.train": ("loader.wait", "host_ms", False),
+    "prep_ms.geomatch": ("request.prep", "device_ms", True),
+    "backbone_ms.geomatch": ("model.backbone", "device_ms", True),
+    "kpconv_ms.geomatch": ("kpconv", "device_ms", True),
+    "lgr_ms.geomatch": ("model.lgr", "device_ms", True),
 }
 
 
